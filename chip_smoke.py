@@ -5,25 +5,41 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``mxnet_tpu_torch/csrc`` with
-``nvcc`` for ``sm_90a``; checks each kernel against its plain PyTorch
-version at the serving path's shapes and times it (CUDA-graph replay
-timed with CUDA events) beside its plain version, a PyTorch library call
-computing the same function where one exists, and its bound (inputs
-cycle through copies larger than the L2 cache, so each call reads them
-from device memory); serves 16
-requests of Transformer-base at full width (random weights from a seed)
-through ``ContinuousBatcher`` and checks that every kernel launched on
-that path; cross-checks two of the served requests against the same
-weights on the CPU; and prints one ``{"kernels": [...]}`` line, then
-``{"ok": true, "device": {...}}`` as its last line. Any failed check
-exits non-zero; without a card it exits non-zero before doing anything.
-Imports nothing of JAX or of the JAX package.
+``nvcc`` for ``sm_90a`` and drives both slices of the port.
+
+Serving: checks each serving kernel against its plain PyTorch version at
+the serving path's shapes and times it (CUDA-graph replay timed with CUDA
+events) beside its plain version, a PyTorch library call computing the
+same function where one exists, and its bound (inputs cycle through
+copies larger than the L2 cache, so each call reads them from device
+memory); serves 16 requests of Transformer-base at full width (random
+weights from a seed) through ``ContinuousBatcher`` and checks that every
+serving kernel launched on that path; cross-checks two of the served
+requests against the same weights on the CPU.
+
+Training: checks the backward kernels (LayerNorm backward; the dK/dV and
+dQ kernels of the flash-attention backward), and the forward kernels
+whose outputs they take, at the training path's shapes in float32 and
+bfloat16 against their plain versions run on CPU copies of the inputs in
+float32, and times the backward kernels the same way; trains a 2-layer
+BERT at full width for two AdamW steps on the card and on the CPU from
+the same weights and compares losses and parameters; trains BERT-base
+(bf16 compute, dropout 0.1, B=16, S=512, ragged valid lengths) for 2
+warm-up and 10 timed steps through ``TrainStep`` and checks the losses,
+every kernel's launch count against the model's structure, and one
+profiled step.
+
+It prints one ``{"kernels": [...]}`` line, the card's name and power
+limit, then ``{"ok": true, "device": {...}}`` as its last line. Any failed
+check exits non-zero; without a card it exits non-zero before doing
+anything. Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -39,11 +55,25 @@ SLOTS = 8
 PAGE_SIZE = 16
 MAX_NEW = 64
 ITER_TOKENS = 4
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and float32
-# operations/s outside the tensor cores; bf16 inputs are computed in f32
-# by these kernels, so f32 CUDA-core work is bounded by the same rate
+# the training configuration of the port's second slice: bench.py:42-70
+# (BERT-base, tied-embedding masked-LM loss, AdamW 1e-4, bf16 compute and
+# moments) at BERT's phase-2 sequence length, 8192 tokens a step
+TRAIN_VOCAB = 30522
+TRAIN_B, TRAIN_S = 16, 512
+# ragged rows: full length, one token, lengths off the 64-key tiles
+TRAIN_VL = [512, 1, 300, 511, 448, 384, 200, 512, 65, 257, 129, 500, 333,
+            77, 450, 512]
+TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+# valid lengths of the backward kernel checks (a row with none, too)
+KCHECK_VL = [512, 0, 300, 1, 511, 64, 65, 200, 256, 384, 500, 17, 129,
+             450, 333, 77]
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, float32
+# operations/s outside the tensor cores, and the dense bf16 tensor-core
+# rate. The kernels compute bf16 inputs in f32; a bound states the least
+# time for the work, so bf16 work is held to the bf16 rate
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 L2_BYTES = 50 * 2 ** 20
 # tolerances of the kernel checks: float32 kernels sum in another order
 # than their plain versions; bfloat16 outputs within 2 bf16 ulps of O(1)
@@ -51,6 +81,17 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # the CPU cross-check: fp32 logits of 6+6 layers at width 512 summed in
 # other orders on the card and the CPU (expected about 1e-5)
 XCHECK_TOL = 1e-3
+# the training path's kernels against their plain versions on CPU copies
+# in f32: max_abs_err <= tol * max(1, max|ref|); f32 sums in another
+# order, bf16 outputs rounded to bf16
+CPU_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# and ||got - ref||_2 / ||ref||_2 <= rel: max|ref| comes from outlier rows
+# (a one-key row gathers every query's gradient), so the bound above alone
+# would pass a kernel wrong on most rows; bf16 rounding alone is 2^-9
+CPU_REL_L2 = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# the training cross-check (2 layers, f32, two AdamW steps, card vs CPU)
+XTRAIN_LOSS_RTOL = 1e-4
+XTRAIN_PARAM_ATOL = 2e-5
 
 
 def fail(msg):
@@ -93,9 +134,9 @@ def cold_copies(args, nbytes):
                            for a in args) for _ in range(n - 1)]
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, flop_rate=F32_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -111,6 +152,40 @@ def check_close(name, got, want, tol):
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
         fail(f"{name} disagrees with its plain version")
+    return err
+
+
+def cpu_f32(*tensors):
+    """CPU copies, float tensors in float32: the oracles' inputs."""
+    return [None if t is None else
+            (t.cpu().float() if t.is_floating_point() else t.cpu())
+            for t in tensors]
+
+
+def check_vs_cpu(name, got, want, dt, launched, may_match=False):
+    """A kernel's output (on the card) against its plain version run on
+    the CPU in float32. Fails unless the kernel launched once for this
+    call, the output is finite, within ``CPU_TOL`` and within
+    ``CPU_REL_L2``; an f32 output equal to the oracle bit for bit means
+    the kernel was compared with itself, and fails too, unless
+    ``may_match`` (f32 statistics of bf16 inputs, whose sums can be exact
+    in any order)."""
+    diff = (got.float().cpu() - want).abs()
+    err = float(diff.max())
+    tol = CPU_TOL[dt] * max(1.0, float(want.abs().max()))
+    ref = float(want.double().norm())
+    rel = float(diff.double().norm()) / ref if ref else \
+        (0.0 if err == 0.0 else math.inf)
+    ndiff = int((diff > 0).sum())
+    ok = bool(torch.isfinite(got.float()).all()) and err <= tol \
+        and rel <= CPU_REL_L2[dt] and launched == 1 \
+        and not (dt == torch.float32 and err == 0.0 and not may_match)
+    print(f"check {name}: max_abs_err={err:.3e} tol={tol:.3e} rel_l2="
+          f"{rel:.3e} tol={CPU_REL_L2[dt]:.0e} differing {ndiff} of "
+          f"{diff.numel()} launches {launched} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{name} disagrees with its plain version on the CPU, or the "
+             "kernel did not launch")
     return err
 
 
@@ -246,6 +321,250 @@ def check_paged_attention(dev, gen):
                 max_abs_err=err, **res)
 
 
+def check_layer_norm_bwd(dev, gen):
+    """K1 and B2 at the training path's shape (8192 x 768), f32 and bf16;
+    B2 timed in bf16, the path's dtype. Returns B2's entry and K1's
+    errors at this shape."""
+    from mxnet_tpu_torch.ops.kernels import layer_norm as K
+
+    rows, C = TRAIN_B * TRAIN_S, 768
+    errs, fwd_errs = {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        x = (torch.randn(rows, C, generator=gen) * 3 + 1).to(dev, dt)
+        g = (1 + 0.1 * torch.randn(C, generator=gen)).to(dev, dt)
+        b = (0.1 * torch.randn(C, generator=gen)).to(dev, dt)
+        dy = torch.randn(rows, C, generator=gen).to(dev, dt)
+        n0 = K.launches
+        out, mean, rstd = K.layer_norm_fwd(x, g, b, 1e-5)
+        torch.cuda.synchronize()
+        launched = K.launches - n0
+        want = K.layer_norm_plain(*cpu_f32(x, g, b), 1e-5)
+        tag = f"{rows}x{C} {dt}"
+        fwd_errs[dt] = check_vs_cpu(f"layer_norm_fwd out {tag}", out,
+                                    want[0], dt, launched)
+        for n, o, w in (("mean", mean, want[1]), ("rstd", rstd, want[2])):
+            check_vs_cpu(f"layer_norm_fwd {n} {tag}", o, w, torch.float32,
+                         launched, may_match=dt != torch.float32)
+        n0 = K.launches_bwd
+        got = K.layer_norm_bwd(x, g, mean, rstd, dy)
+        torch.cuda.synchronize()
+        launched = K.launches_bwd - n0
+        want = K.layer_norm_bwd_plain(*cpu_f32(x, g, mean, rstd, dy))
+        errs[dt] = max(
+            check_vs_cpu(f"layer_norm_bwd {n} {rows}x{C} {dt}", o, w, dt,
+                         launched)
+            for n, o, w in zip(("dx", "dgamma", "dbeta"), got, want))
+        again = K.layer_norm_bwd(x, g, mean, rstd, dy)
+        if not (torch.equal(again[1], got[1])
+                and torch.equal(again[2], got[2])):
+            fail("layer_norm_bwd: dgamma/dbeta differ between two runs")
+    # x, dy read and dx written in bf16; gamma; f32 mean, rstd, dg, db
+    nbytes = 3 * rows * C * 2 + C * 2 + 2 * rows * 4 + 2 * C * 4
+    bnd, by = bound_ms(nbytes, 13 * rows * C, BF16_FLOP_PER_S)
+    # the library call gets its own forward statistics
+    _, lm, lr = torch.ops.aten.native_layer_norm(x, [C], g, b, 1e-5)
+    sets = cold_copies((x, g, b, mean, rstd, dy, lm, lr), nbytes)
+    res = dict(
+        ms=time_ms(lambda x, g, b, m, r, dy, lm, lr:
+                   K.layer_norm_bwd(x, g, m, r, dy), sets),
+        plain_ms=time_ms(lambda x, g, b, m, r, dy, lm, lr:
+                         K.layer_norm_bwd_plain(x, g, m, r, dy), sets),
+        library_ms=time_ms(
+            lambda x, g, b, m, r, dy, lm, lr:
+            torch.ops.aten.native_layer_norm_backward(
+                dy, x, [C], lm, lr, g, b, [True, True, True]), sets),
+        bound_ms=bnd, bound_by=by)
+    print(f"timing layer_norm_bwd rows={rows} C={C} bf16: {json.dumps(res)}")
+    return dict(name="layer_norm_bwd", route="cuda",
+                source="mxnet_tpu_torch/csrc/layer_norm_bwd.cu",
+                replaces="mxnet_tpu/ops/pallas/layer_norm.py:51",
+                max_abs_err=errs[torch.float32],
+                max_abs_err_bf16=errs[torch.bfloat16], **res), \
+        dict(max_abs_err_train=fwd_errs[torch.float32],
+             max_abs_err_train_bf16=fwd_errs[torch.bfloat16])
+
+
+def time_sdpa_bwd_ms(sets, iters=10):
+    """Device time of one backward of ``F.scaled_dot_product_attention``
+    with the boolean key mask: the forward once per input set (not
+    timed), then ``iters`` rounds of ``torch.autograd.grad`` over the
+    sets between two CUDA events (eager: the autograd call is not
+    captured in a graph)."""
+    ready = []
+    for q, k, v, do, _, _, _, _, mask in sets:
+        ins = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = torch.nn.functional.scaled_dot_product_attention(
+            *ins, attn_mask=mask)
+        ready.append((out, ins, do))
+
+    def run():
+        for out, ins, do in ready:
+            torch.autograd.grad(out, ins, do, retain_graph=True)
+
+    run()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        run()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (iters * len(ready))
+
+
+def check_flash_attention_bwd(dev, gen):
+    """K2, B4a and B4b at the training path's shape (B16 H12 S512 D64),
+    f32 and bf16, causal and not; B4 timed in bf16 without the causal
+    mask, as the path runs them. Returns B4's entries and K2's errors at
+    this shape."""
+    from mxnet_tpu_torch.ops.kernels import flash_attention as K
+
+    B, H, S, D = TRAIN_B, 12, TRAIN_S, 64
+    vl = torch.tensor(KCHECK_VL, dtype=torch.int32, device=dev)
+    empty = KCHECK_VL.index(0)
+    seen = torch.tensor(KCHECK_VL) > 0  # rows whose queries see a key
+    errs = {(n, dt): 0.0 for n in ("fwd", "dkdv", "dq")
+            for dt in (torch.float32, torch.bfloat16)}
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v, do = (torch.randn(B, H, S, D, generator=gen).to(dev, dt)
+                       for _ in range(4))
+        for causal in (False, True):
+            tag = f"B={B} H={H} S={S} causal={causal} {dt}"
+            n0 = K.launches
+            out, lse = K.flash_attention_fwd(q, k, v, vl, causal)
+            torch.cuda.synchronize()
+            lf = K.launches - n0
+            want_out, want_lse = K.flash_attention_plain(
+                *cpu_f32(q, k, v, vl), causal)
+            e_out = check_vs_cpu(f"flash_attention_fwd out {tag}", out,
+                                 want_out, dt, lf)
+            # lse is f32 in both dtypes; a row without a key holds the
+            # -1e30 sentinel, compared apart
+            check_vs_cpu(f"flash_attention_fwd lse {tag}", lse.cpu()[seen],
+                         want_lse[seen], torch.float32, lf,
+                         may_match=dt != torch.float32)
+            if not (bool((lse[empty] <= -1e29).all())
+                    and bool((want_lse[empty] <= -1e29).all())):
+                fail("flash_attention_fwd: a row with valid_length 0 must "
+                     "keep the masked lse")
+            errs["fwd", dt] = max(errs["fwd", dt], e_out)
+            delta = (do.float() * out.float()).sum(-1)
+            n0 = (K.launches_bwd_dkdv, K.launches_bwd_dq)
+            dk, dv = K.flash_attention_bwd_dkdv(q, k, v, vl, lse, delta, do,
+                                                causal)
+            dq = K.flash_attention_bwd_dq(q, k, v, vl, lse, delta, do,
+                                          causal)
+            torch.cuda.synchronize()
+            la = K.launches_bwd_dkdv - n0[0]
+            lb = K.launches_bwd_dq - n0[1]
+            args = cpu_f32(q, k, v, vl, lse, delta, do)
+            want_dk, want_dv = K.flash_attention_bwd_dkdv_plain(*args,
+                                                                causal)
+            want_dq = K.flash_attention_bwd_dq_plain(*args, causal)
+            e_dk = check_vs_cpu(f"flash_attention_bwd_dkdv dk {tag}", dk,
+                                want_dk, dt, la)
+            e_dv = check_vs_cpu(f"flash_attention_bwd_dkdv dv {tag}", dv,
+                                want_dv, dt, la)
+            e_dq = check_vs_cpu(f"flash_attention_bwd_dq dq {tag}", dq,
+                                want_dq, dt, lb)
+            errs["dkdv", dt] = max(errs["dkdv", dt], e_dk, e_dv)
+            errs["dq", dt] = max(errs["dq", dt], e_dq)
+            if any(bool(t[empty].any()) for t in (dq, dk, dv)):
+                fail("flash_attention_bwd: a row with valid_length 0 must "
+                     "get zero gradients")
+            again = K.flash_attention_bwd_dkdv(q, k, v, vl, lse, delta, do,
+                                               causal) + \
+                (K.flash_attention_bwd_dq(q, k, v, vl, lse, delta, do,
+                                          causal),)
+            if not all(torch.equal(a, b) for a, b in zip(again,
+                                                         (dk, dv, dq))):
+                fail("flash_attention_bwd: a second call gave other bits")
+    # timing: the last (bf16) operands, without the causal mask
+    out, lse = K.flash_attention_fwd(q, k, v, vl, False)
+    delta = (do.float() * out.float()).sum(-1)
+    keys = [min(n, S) for n in KCHECK_VL]
+    pairs = H * S * sum(keys)  # visible (query, key) pairs
+    row = D * 2  # one bf16 row
+    q_rows = sum(n > 0 for n in keys) * H * S  # queries that see a key
+    k_rows = H * sum(keys)  # keys below valid_length
+    stats = 2 * q_rows * 4  # lse, delta
+    grads = B * H * S * row  # one gradient tensor written
+    nbytes = {"dkdv": 2 * q_rows * row + 2 * k_rows * row + stats + 2 * grads,
+              "dq": 2 * q_rows * row + 2 * k_rows * row + stats + grads,
+              # q, do, out (for delta), k, v read; dq, dk, dv written
+              "pair": 3 * q_rows * row + 2 * k_rows * row + stats + 3 * grads}
+    flops = {"dkdv": 8 * D * pairs, "dq": 6 * D * pairs, "pair": 10 * D * pairs}
+    mask = (torch.arange(S, device=dev)[None, :] < vl[:, None]).view(
+        B, 1, 1, S)
+    sets = cold_copies((q, k, v, do, lse, delta, out, vl, mask),
+                       nbytes["pair"])
+    fns = {
+        "dkdv": (lambda q, k, v, do, lse, delta, out, vl, m:
+                 K.flash_attention_bwd_dkdv(q, k, v, vl, lse, delta, do),
+                 lambda q, k, v, do, lse, delta, out, vl, m:
+                 K.flash_attention_bwd_dkdv_plain(q, k, v, vl, lse, delta,
+                                                  do)),
+        "dq": (lambda q, k, v, do, lse, delta, out, vl, m:
+               K.flash_attention_bwd_dq(q, k, v, vl, lse, delta, do),
+               lambda q, k, v, do, lse, delta, out, vl, m:
+               K.flash_attention_bwd_dq_plain(q, k, v, vl, lse, delta, do)),
+        "pair": (lambda q, k, v, do, lse, delta, out, vl, m:
+                 K.flash_attention_bwd(q, k, v, vl, out, lse, do),
+                 lambda q, k, v, do, lse, delta, out, vl, m:
+                 K.flash_attention_bwd_plain(q, k, v, vl, out, lse, do))}
+    res = {}
+    for part, (fn, plain) in fns.items():
+        bnd, by = bound_ms(nbytes[part], flops[part], BF16_FLOP_PER_S)
+        res[part] = dict(ms=time_ms(fn, sets), plain_ms=time_ms(plain, sets),
+                         library_ms=None, bound_ms=bnd, bound_by=by)
+    res["pair"]["library_ms"] = time_sdpa_bwd_ms(sets)
+    print(f"timing flash_attention_bwd B={B} H={H} S={S} D={D} bf16 "
+          f"vl={KCHECK_VL} (pair = delta + both kernels; library = the "
+          f"backward of F.scaled_dot_product_attention, bool mask): "
+          f"{json.dumps(res)}")
+    pair = {f"pair_{k}": v for k, v in res["pair"].items()
+            if k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    return [dict(name="flash_attention_bwd_dkdv", route="cuda",
+                 source="mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
+                 replaces="mxnet_tpu/ops/pallas/flash_attention.py:223",
+                 max_abs_err=errs["dkdv", torch.float32],
+                 max_abs_err_bf16=errs["dkdv", torch.bfloat16],
+                 **res["dkdv"], **pair),
+            dict(name="flash_attention_bwd_dq", route="cuda",
+                 source="mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
+                 replaces="mxnet_tpu/ops/pallas/flash_attention.py:273",
+                 max_abs_err=errs["dq", torch.float32],
+                 max_abs_err_bf16=errs["dq", torch.bfloat16],
+                 **res["dq"], **pair)], \
+        dict(max_abs_err_train=errs["fwd", torch.float32],
+             max_abs_err_train_bf16=errs["fwd", torch.bfloat16])
+
+
+def counters():
+    """Every kernel's launch counter: name -> (wrapper module, attr)."""
+    from mxnet_tpu_torch.ops.kernels import flash_attention as k_fa
+    from mxnet_tpu_torch.ops.kernels import layer_norm as k_ln
+    from mxnet_tpu_torch.ops.kernels import paged_attention as k_pa
+
+    return {"layer_norm_fwd": (k_ln, "launches"),
+            "flash_attention_fwd": (k_fa, "launches"),
+            "paged_decode_attention": (k_pa, "launches"),
+            "layer_norm_bwd": (k_ln, "launches_bwd"),
+            "flash_attention_bwd_dkdv": (k_fa, "launches_bwd_dkdv"),
+            "flash_attention_bwd_dq": (k_fa, "launches_bwd_dq")}
+
+
+def reset_counts():
+    for mod, attr in counters().values():
+        setattr(mod, attr, 0)
+
+
+def read_counts():
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in counters().items()}
+
+
 # --------------------------------------------------------------- serving
 @torch.no_grad()
 def draw_weights(net, seed):
@@ -342,6 +661,173 @@ def teacher_forced_logits(net, prompt, tokens, device):
     return torch.stack(steps)
 
 
+# -------------------------------------------------------------- training
+def make_train_batch(B, S, valid_length, seed):
+    """Seeded ``(token_ids, token_types, valid_length, labels)``: random
+    ids and labels over the vocabulary, the second half of each row's
+    valid tokens in segment 1."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, TRAIN_VOCAB, size=(B, S)).astype(np.int32)
+    vl = np.asarray(valid_length, np.int32)
+    pos = np.arange(S)[None, :]
+    types = ((pos >= vl[:, None] // 2) & (pos < vl[:, None])).astype(
+        np.int32)
+    labels = rng.randint(0, TRAIN_VOCAB, size=(B, S)).astype(np.int32)
+    return ids, types, vl, labels
+
+
+def train_cross_check(dev):
+    """A 2-layer BERT at full width trained for two AdamW steps on the
+    card and on the CPU from the same weights, f32, dropout 0, TF32 off,
+    B=2, S=512: both runs take the kernel routes (LayerNorm C=768, flash
+    attention at S > 256), the card's through the CUDA kernels."""
+    from mxnet_tpu_torch.gluon.model_zoo import BERTModel, PretrainLoss
+    from mxnet_tpu_torch.optimizer import AdamW
+    from mxnet_tpu_torch.parallel import TrainStep
+
+    cfg = dict(vocab_size=TRAIN_VOCAB, units=768, hidden_size=3072,
+               num_layers=2, num_heads=12, max_length=TRAIN_S, dropout=0.0)
+    vl = [512, 301]
+    batch = make_train_batch(2, TRAIN_S, vl, SEED + 1)
+    cpu_net = BERTModel(device="cpu", **cfg).initialize(SEED)
+    init = {n: p.detach().clone() for n, p in cpu_net.named_parameters()}
+    card_net = BERTModel(**cfg)
+    card_net.load_state_dict(cpu_net.state_dict())
+    losses, launched = {}, {}
+    for name, net in (("card", card_net), ("cpu", cpu_net)):
+        step = TrainStep(net, PretrainLoss(net), AdamW(learning_rate=1e-4),
+                         device=net.word_embed.weight.device)
+        reset_counts()
+        losses[name] = [float(step(*batch)) for _ in range(2)]
+        launched[name] = read_counts()
+    rel = max(abs(a - b) / abs(b)
+              for a, b in zip(losses["card"], losses["cpu"]))
+    perr, moved = 0.0, 0.0
+    for (n, a), (_, b) in zip(card_net.named_parameters(),
+                              cpu_net.named_parameters()):
+        perr = max(perr, float((a.detach().cpu() - b.detach()).abs().max()))
+        moved = max(moved, float((b.detach() - init[n]).abs().max()))
+    card_k = launched["card"]
+    print(f"train cross-check card vs cpu (f32, 2 layers, B=2 S={TRAIN_S} "
+          f"vl {vl}, 2 AdamW steps): losses card {losses['card']} cpu "
+          f"{losses['cpu']} max rel {rel:.3e} tol {XTRAIN_LOSS_RTOL:.0e}; "
+          f"parameters max_abs_err {perr:.3e} tol {XTRAIN_PARAM_ATOL:.0e} "
+          f"(largest move {moved:.3e}); card launches {json.dumps(card_k)}")
+    if rel > XTRAIN_LOSS_RTOL or perr > XTRAIN_PARAM_ATOL:
+        fail("the card's training steps disagree with the CPU's")
+    if min(card_k[n] for n in ("layer_norm_fwd", "layer_norm_bwd",
+                               "flash_attention_fwd",
+                               "flash_attention_bwd_dkdv",
+                               "flash_attention_bwd_dq")) < 1 \
+            or any(launched["cpu"].values()):
+        fail("the cross-check did not run the card's kernels (or the CPU "
+             "run launched one)")
+
+
+def profile_step(step, batch):
+    """One training step under ``torch.profiler``: device kernel time by
+    group and the device's busy share of the step's wall time. Returns
+    None where the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    groups = (("B4a flash_attention_bwd_dkdv", "flash_bwd_dkdv"),
+              ("B4b flash_attention_bwd_dq", "flash_bwd_dq"),
+              ("K2 flash_attention_fwd", "flash_fwd_kernel"),
+              ("B2 layer_norm_bwd", "ln_bwd_"),
+              ("K1 layer_norm_fwd", "layer_norm_fwd_kernel"),
+              ("matmul", ("gemm", "cutlass", "nvjet", "xmma", "cublas")))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(step(*batch))
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_group = {}
+    for ev in prof.key_averages():
+        if "cuda" not in str(getattr(ev, "device_type", "")).lower():
+            continue
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = ev.cuda_time_total
+        name = ev.key
+        group = next((g for g, pat in groups
+                      if any(p in name for p in
+                             (pat if isinstance(pat, tuple) else (pat,)))),
+                     "other")
+        by_group[group] = by_group.get(group, 0.0) + us / 1e3
+    busy = sum(by_group.values())
+    if busy <= 0:
+        return None
+    return dict(wall_ms=round(wall_ms, 3), device_ms=round(busy, 3),
+                busy_share=round(busy / wall_ms, 3),
+                by_group_ms={g: round(t, 4) for g, t in
+                             sorted(by_group.items(), key=lambda x: -x[1])})
+
+
+def train(dev, tag):
+    """BERT-base, bf16 compute, dropout 0.1, B=16, S=512, ragged valid
+    lengths: 2 warm-up and 10 timed steps on one batch through
+    ``TrainStep``. Checks the losses and every kernel's launches against
+    the model's structure; returns the launch counts of the timed
+    steps."""
+    from mxnet_tpu_torch import random as mx_random
+    from mxnet_tpu_torch.gluon.model_zoo import PretrainLoss, bert_base
+    from mxnet_tpu_torch.gluon.nn import LayerNorm, MultiHeadAttention
+    from mxnet_tpu_torch.optimizer import AdamW
+    from mxnet_tpu_torch.parallel import TrainStep
+
+    mx_random.seed(SEED)
+    net = bert_base(vocab_size=TRAIN_VOCAB, max_length=TRAIN_S,
+                    dropout=0.1).initialize(SEED)
+    step = TrainStep(net, PretrainLoss(net), AdamW(learning_rate=1e-4),
+                     compute_dtype="bfloat16", state_dtype="bfloat16")
+    batch = [torch.as_tensor(a, device=dev) for a in
+             make_train_batch(TRAIN_B, TRAIN_S, TRAIN_VL, SEED)]
+    losses = [float(step(*batch)) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step(*batch)))  # float() waits for the step
+        times.append(time.perf_counter() - t0)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_ln = sum(isinstance(m, LayerNorm) for m in net.modules())
+    n_attn = sum(isinstance(m, MultiHeadAttention) for m in net.modules())
+    want = {"layer_norm_fwd": n_ln, "layer_norm_bwd": n_ln,
+            "flash_attention_fwd": n_attn,
+            "flash_attention_bwd_dkdv": n_attn,
+            "flash_attention_bwd_dq": n_attn, "paged_decode_attention": 0}
+    want = {k: n * TRAIN_STEPS for k, n in want.items()}
+    tokens = TRAIN_B * TRAIN_S
+    ms = sorted(t * 1e3 for t in times)
+    print(f"train [{tag}]: BERT-base bf16 B={TRAIN_B} S={TRAIN_S} vl "
+          f"{TRAIN_VL} ({sum(TRAIN_VL)} valid tokens a step), "
+          f"{TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-up: "
+          f"{TRAIN_STEPS * tokens / sum(times):.1f} tokens/s "
+          f"({TRAIN_STEPS * tokens} tokens in {sum(times):.6f} s); step p50 "
+          f"{statistics.median(ms):.3f} ms, min {ms[0]:.3f}, max "
+          f"{ms[-1]:.3f}; max_memory_allocated {peak} bytes; losses "
+          f"{[round(x, 5) for x in losses]}; launches {json.dumps(counts)} "
+          f"(per step: {n_ln} LayerNorms, {n_attn} attention layers)")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"training losses are not finite or do not fall: {losses}")
+    if counts != want:
+        fail(f"launches {counts} differ from the model's structure {want}")
+    prof = profile_step(step, batch)
+    if prof:
+        # the profiler slows the host, not the device: the profiled
+        # step's wall overstates the idle share
+        prof["device_ms_over_step_p50"] = round(
+            prof["device_ms"] / statistics.median(ms), 3)
+    print(f"train profile (one step under torch.profiler): "
+          f"{json.dumps(prof) if prof else 'no device time recorded'}")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -349,9 +835,6 @@ def main():
         return 2
     from mxnet_tpu_torch.gluon.model_zoo import transformer_base
     from mxnet_tpu_torch.ops.kernels import _build
-    from mxnet_tpu_torch.ops.kernels import flash_attention as k_fa
-    from mxnet_tpu_torch.ops.kernels import layer_norm as k_ln
-    from mxnet_tpu_torch.ops.kernels import paged_attention as k_pa
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -370,6 +853,7 @@ def main():
     lib = _build.build()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s -> {lib.name}")
 
+    # ------------------------------------------------------- serving phase
     gen = torch.Generator().manual_seed(SEED)
     kernels = [check_layer_norm(dev, gen), check_flash_attention(dev, gen),
                check_paged_attention(dev, gen)]
@@ -378,15 +862,12 @@ def main():
                                         max_length=1024, dropout=0.0), SEED)
     prompts, max_new = make_requests()
     serve(net, prompts[:1], [4])  # warm-up: cuBLAS handles, allocator
-    modules = (k_ln, k_fa, k_pa)
-    for m in modules:
-        m.launches = 0
+    reset_counts()
     outs, wall, ttft, stats = serve(net, prompts, max_new)
-    launches = [m.launches for m in modules]
-    for entry, n in zip(kernels, launches):
-        entry["launches"] = n
-    if min(launches) < 1:
-        fail(f"a kernel of the serving path never launched: {launches}")
+    served = read_counts()
+    if min(served[k] for k in ("layer_norm_fwd", "flash_attention_fwd",
+                               "paged_decode_attention")) < 1:
+        fail(f"a kernel of the serving path never launched: {served}")
     for r, (toks, m) in enumerate(zip(outs, max_new)):
         ok_len = len(toks) == m or (toks and toks[-1] == 2
                                     and len(toks) <= m)
@@ -399,8 +880,7 @@ def main():
           f"{ttft[len(ttft) // 2]:.1f} ms, max {ttft[-1]:.1f} ms; "
           f"iterations {stats['iterations']}, mean occupancy "
           f"{stats['occupancy_sum'] / max(stats['iterations'], 1):.3f}; "
-          f"launches layer_norm {launches[0]}, flash_attention "
-          f"{launches[1]}, paged_decode {launches[2]}")
+          f"launches {json.dumps(served)}")
 
     cpu_net = transformer_base(src_vocab=VOCAB, tgt_vocab=VOCAB,
                                max_length=1024, dropout=0.0, device="cpu")
@@ -421,18 +901,38 @@ def main():
         err = float((gpu_lg - cpu_lg).abs().max())
         top2 = cpu_lg.topk(2, dim=-1).values
         decided = (top2[:, 0] - top2[:, 1]) > XCHECK_TOL
-        served = torch.tensor(outs[r])
-        wrong = int(((cpu_lg.argmax(-1) != served) & decided).sum())
+        served_toks = torch.tensor(outs[r])
+        wrong = int(((cpu_lg.argmax(-1) != served_toks) & decided).sum())
         print(f"cpu cross-check request {r}: {len(outs[r])} steps, "
               f"logits max_abs_err={err:.3e} tol={XCHECK_TOL:.0e}, "
               f"served tokens != cpu greedy at {wrong} of "
               f"{int(decided.sum())} decided steps, "
               f"transcripts equal: "
-              f"{bool((cpu_lg.argmax(-1) == served).all())}")
+              f"{bool((cpu_lg.argmax(-1) == served_toks).all())}")
         if err > XCHECK_TOL or wrong:
             fail(f"request {r} disagrees with the CPU run")
+    del net, cpu_net
 
+    # ------------------------------------------------------ training phase
+    # the forward kernels again at the training path's shapes, beside
+    # the backward kernels that take their outputs
+    by_name = {e["name"]: e for e in kernels}
+    entry, fwd = check_layer_norm_bwd(dev, gen)
+    kernels.append(entry)
+    by_name["layer_norm_fwd"].update(fwd)
+    entries, fwd = check_flash_attention_bwd(dev, gen)
+    kernels.extend(entries)
+    by_name["flash_attention_fwd"].update(fwd)
+    train_cross_check(dev)
+    trained = train(dev, f"{kind}, {smi}")
+
+    for entry in kernels:
+        name = entry["name"]
+        entry["launches"] = served[name] + trained[name]
+        entry["launches_by_path"] = {"serve": served[name],
+                                     "train": trained[name]}
     print(json.dumps({"kernels": kernels}))
+    print(smi)  # name, power limit
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind,
                                              "count": count}}))

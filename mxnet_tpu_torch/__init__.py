@@ -1,16 +1,18 @@
-"""PyTorch/CUDA port of ``mxnet_tpu``: the Transformer serving path.
+"""PyTorch/CUDA port of ``mxnet_tpu``: the Transformer serving path and
+the BERT pretraining step.
 
 The package mirrors the JAX package's module paths so each counterpart is
 easy to find (``gluon/model_zoo/transformer.py`` ports
 ``mxnet_tpu/gluon/model_zoo/transformer.py`` and so on). It imports
-``torch`` and never ``jax`` or ``mxnet_tpu``. The three Pallas kernels the
-serving path runs (LayerNorm forward, flash-attention forward and paged
-decode attention) are hand-written CUDA kernels for Hopper under
-``csrc/``, built with ``nvcc`` at first launch (``ops/kernels/_build.py``).
+``torch`` and never ``jax`` or ``mxnet_tpu``. The Pallas kernels these
+paths run (LayerNorm forward and backward, flash-attention forward and
+its two backward kernels, paged decode attention) are hand-written CUDA
+kernels for Hopper under ``csrc/``, built with ``nvcc`` at first launch
+(``ops/kernels/_build.py``).
 
-Entry points (``InferStep``, ``ContinuousBatcher``, model constructors)
-run on ``device="cuda"`` unless the caller passes ``device="cpu"``; a CUDA
-request without a card raises ``MXNetError``.
+Entry points (``InferStep``, ``ContinuousBatcher``, ``TrainStep``, model
+constructors) run on ``device="cuda"`` unless the caller passes
+``device="cpu"``; a CUDA request without a card raises ``MXNetError``.
 """
 
 from .base import MXNetError

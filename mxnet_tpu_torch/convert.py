@@ -4,9 +4,11 @@
 an ``.npz`` (``util.py:23-45``): arrays ``arr_0 ... arr_{n-1}`` plus a JSON
 manifest under ``__mxnet_tpu_manifest__`` whose ``keys`` are the
 structural parameter names of ``Block._collect_params_with_prefix``
-(``block.py:305``), e.g. ``decoder.layer0.self_attn.qkv_proj.weight``.
-The port's modules use the same names and layouts (Dense weights are
-``(out, in)`` in both packages), so loading is a name-for-name copy. The
+(``block.py:305``), e.g. ``decoder.layer0.self_attn.qkv_proj.weight``
+for the Transformer or ``encoder.layers.0.attention.qkv_proj.weight``
+for BERT. The port's modules use the same names and layouts (Dense
+weights are ``(out, in)`` in both packages), so loading is a
+name-for-name copy. The
 port keeps its own reader of that file: it imports nothing of the JAX
 package.
 """

@@ -1,8 +1,8 @@
-"""Layers and models of the port (``torch.nn.Module``s).
+"""Layers, losses and models of the port (``torch.nn.Module``s).
 
-Counterpart of ``mxnet_tpu/gluon/`` for the serving slice.
+Counterpart of ``mxnet_tpu/gluon/`` for the serving and training slices.
 """
 
-from . import model_zoo, nn
+from . import loss, model_zoo, nn
 
-__all__ = ["nn", "model_zoo"]
+__all__ = ["nn", "loss", "model_zoo"]

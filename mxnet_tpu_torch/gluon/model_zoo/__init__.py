@@ -1,5 +1,7 @@
-"""Counterpart of ``mxnet_tpu/gluon/model_zoo/`` for the serving slice."""
+"""Counterpart of ``mxnet_tpu/gluon/model_zoo/`` for the serving and
+training slices."""
 
+from .bert import BERTModel, PretrainLoss, bert_base
 from .transformer import TransformerModel, transformer_base
 
-__all__ = ["TransformerModel", "transformer_base"]
+__all__ = ["BERTModel", "PretrainLoss", "bert_base", "TransformerModel", "transformer_base"]

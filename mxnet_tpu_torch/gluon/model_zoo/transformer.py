@@ -17,14 +17,13 @@ returns new arrays): per-decoder-layer ``k_pools``/``v_pools``
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ...base import MXNetError
 from ...context import resolve_device
+from ...initializer import xavier_
 from ..nn import Dense, Dropout, Embedding, LayerNorm, MultiHeadAttention
 
 __all__ = ["TransformerModel", "transformer_base"]
@@ -164,26 +163,11 @@ class TransformerModel(nn.Module):
     def device(self) -> torch.device:
         return self.tgt_embed.weight.device
 
-    @torch.no_grad()
     def initialize(self, seed=0):
-        """Seeded Xavier init, the JAX package's ``initializer.Xavier()``
-        (uniform, factor ``avg``, magnitude 3) on every weight; biases and
-        beta zero, gamma one. The numbers come from a CPU
-        ``torch.Generator``, so the same seed gives the same weights on
-        any device (they are not the JAX package's numbers)."""
-        gen = torch.Generator().manual_seed(int(seed))
-        for name, p in self.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf == "gamma":
-                p.fill_(1.0)
-            elif leaf in ("bias", "beta"):
-                p.zero_()
-            else:
-                fan_out, fan_in = p.shape[0], p.shape[1]
-                scale = math.sqrt(3.0 / ((fan_in + fan_out) / 2.0))
-                w = torch.rand(p.shape, generator=gen) * (2 * scale) - scale
-                p.copy_(w)
-        return self
+        """Seeded Xavier init (``initializer.xavier_``), the JAX package's
+        ``initializer.Xavier()`` on every weight; biases and beta zero,
+        gamma one."""
+        return xavier_(self, seed)
 
     def _embed(self, embed, ids):
         B, S = ids.shape[0], ids.shape[1]

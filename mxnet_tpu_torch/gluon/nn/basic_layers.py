@@ -1,4 +1,4 @@
-"""Basic layers of the serving slice as ``torch.nn.Module``s.
+"""Basic layers of the serving and training slices as ``torch.nn.Module``s.
 
 Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``: ``Dense``,
 ``Embedding``, ``LayerNorm`` and ``Dropout``. Parameter names (``weight``,
@@ -11,7 +11,6 @@ load by name (``mxnet_tpu_torch.convert``). Parameters start at zero
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ...base import MXNetError
@@ -28,15 +27,17 @@ def _zeros(shape, dtype, device):
 class Dense(nn.Module):
     """Fully-connected layer over the last axis: ``out = act(x @ W.T +
     b)``, W (units, in_units) -- the JAX package's ``flatten=False`` form,
-    the only one the serving path uses. ``activation`` is None or
-    ``"relu"``."""
+    the only one the port's models use. ``activation`` is None, ``"relu"``
+    or ``"tanh"`` (the BERT pooler)."""
+
+    _ACTS = {"relu": _ops.relu, "tanh": _ops.tanh}
 
     def __init__(self, units, in_units, activation=None, use_bias=True,
                  dtype=torch.float32, device="cuda"):
         super().__init__()
-        if activation not in (None, "relu"):
+        if activation is not None and activation not in self._ACTS:
             raise MXNetError(f"Dense activation {activation!r} is not "
-                             "ported; use None or 'relu'")
+                             "ported; use None, 'relu' or 'tanh'")
         dev = resolve_device(device)
         self._act = activation
         self.weight = _zeros((units, in_units), dtype, dev)
@@ -44,7 +45,7 @@ class Dense(nn.Module):
 
     def forward(self, x):
         out = _ops.fully_connected(x, self.weight, self.bias)
-        return _ops.relu(out) if self._act == "relu" else out
+        return out if self._act is None else self._ACTS[self._act](out)
 
 
 class Embedding(nn.Module):
@@ -80,13 +81,13 @@ class LayerNorm(nn.Module):
 
 
 class Dropout(nn.Module):
-    """Dropout with rate ``rate``; the identity in eval mode."""
+    """Dropout with rate ``rate`` in training mode, its mask drawn from the
+    port's seeded generator (``ops.nn.dropout``); the identity in eval
+    mode."""
 
     def __init__(self, rate):
         super().__init__()
         self._rate = float(rate)
 
     def forward(self, x):
-        if self._rate > 0 and self.training:
-            return F.dropout(x, self._rate, training=True)
-        return x
+        return _ops.dropout(x, self._rate, training=self.training)

@@ -1,11 +1,15 @@
-"""Fused attention op of the serving slice.
+"""Fused attention op of the serving and training slices.
 
 Counterpart of ``_flash_attention_op`` in ``mxnet_tpu/ops/contrib.py``
-(:504-559) in its BSHD layout, the one the serving path uses, with the
+(:504-559) in its BSHD layout, the one the port's models use, with the
 same routing: an offset query (``q_offset``), a single query, or
 ``max(Sq, Sk) <= MXTPU_ATTN_DENSE_MAX`` (default 256, read per call,
-:438-441) takes the exact dense path; everything else goes to kernel K2
-through a BHSD transpose (:549-553).
+:438-441) takes the exact dense path, differentiated by torch autograd as
+the JAX package leaves it to XLA; everything else goes through a BHSD
+transpose (:549-553) to kernel K2, differentiated by kernels B4a and B4b
+(the JAX package's ``flash_attention`` custom_vjp). The port has one
+backward; the JAX package's ``MXTPU_FLASH_BWD`` picks between two
+implementations of the same math, both oracles for it.
 """
 
 from __future__ import annotations
@@ -15,7 +19,8 @@ import os
 
 import torch
 
-from .kernels.flash_attention import flash_attention_fwd
+from .kernels.flash_attention import (flash_attention_bwd,
+                                      flash_attention_fwd)
 
 __all__ = ["flash_attention"]
 
@@ -57,6 +62,27 @@ def _dense_attention_bshd(q, k, v, valid_length, causal, sm_scale,
     return torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype), v)
 
 
+class _FlashAttentionFn(torch.autograd.Function):
+    """K2 forward, B4a + B4b backward over contiguous (B, H, S, D)
+    operands; ``valid_length`` None means full length (``:494-495``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, valid_length, causal, sm_scale):
+        out, lse = flash_attention_fwd(q, k, v, valid_length, causal,
+                                       sm_scale)
+        ctx.save_for_backward(q, k, v, valid_length, out, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, valid_length, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, valid_length, out, lse,
+                                         do.contiguous(), ctx.causal,
+                                         ctx.sm_scale)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(query, key, value, valid_length=None, causal=False,
                     sm_scale=None, q_offset=None):
     """Softmax attention over (B, S, H, D) operands. ``valid_length``
@@ -74,6 +100,6 @@ def flash_attention(query, key, value, valid_length=None, causal=False,
         valid_length, device=query.device).to(torch.int32).contiguous()
     tq, tk, tv = (x.transpose(1, 2).contiguous()
                   for x in (query, key, value))
-    out, _ = flash_attention_fwd(tq, tk, tv, vl, bool(causal),
-                                 float(sm_scale))
+    out = _FlashAttentionFn.apply(tq, tk, tv, vl, bool(causal),
+                                  float(sm_scale))
     return out.transpose(1, 2)

@@ -9,6 +9,16 @@ Tolerance: float32 kernels sum in another order than the plain versions
 to 512 keys); bfloat16 outputs (LayerNorm and flash attention; the paged
 kernel serves the float32 cache only) are compared within 2 bf16 ulps of
 O(1) values (2e-2).
+
+The backward kernels (B2 LayerNorm, B4a/B4b flash attention) are held
+against their plain versions run on CPU copies of the same inputs in
+float32, out of the kernels' reach: max_abs_err <= 1e-4 * max(1,
+max|ref|) for float32 operands, 3e-2 * max(1, max|ref|) for bfloat16
+(outputs rounded to bfloat16, sums over up to 8192 rows); and
+||got - ref||_2 / ||ref||_2 <= 1e-5 (float32) or 1e-2 (bfloat16), since
+max|ref| comes from outlier rows (a one-key row gathers every query's
+gradient) and the first bound alone would pass a kernel wrong on most
+rows.
 """
 
 import pytest
@@ -35,7 +45,8 @@ def _close(got, want, tol):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("rows,C", [(8, 512), (4096, 512), (33, 4096)])
+@pytest.mark.parametrize("rows,C", [(8, 512), (4096, 512), (33, 4096),
+                                    (8192, 768)])
 def test_layer_norm_kernel(rows, C, dtype, tol):
     dev = _card()
     g = torch.Generator(device="cpu").manual_seed(rows + C)
@@ -57,6 +68,11 @@ def test_layer_norm_kernel(rows, C, dtype, tol):
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("B,H,S,D,vl", [(8, 8, 512, 64, [512, 0, 300, 1,
                                                          511, 64, 65, 200]),
+                                        (16, 12, 512, 64, [512, 0, 300, 1,
+                                                           511, 64, 65, 200,
+                                                           256, 384, 500, 17,
+                                                           129, 450, 333,
+                                                           77]),
                                         (2, 3, 77, 64, None),
                                         (1, 2, 130, 64, [129])])
 def test_flash_attention_kernel(B, H, S, D, vl, causal, dtype, tol):
@@ -98,3 +114,87 @@ def test_paged_decode_kernel():
     assert k_pa.launches == before + 1
     assert torch.isfinite(got.float()).all()
     _close(got, want, 2e-5)
+
+
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+BWD_REL_L2 = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def _close_to_cpu(got, want, dtype):
+    """``got`` (card) against ``want`` (plain version on the CPU, f32)."""
+    got = got.float().cpu()
+    assert torch.isfinite(got).all()
+    if not want.numel():
+        return
+    diff = (got - want).abs()
+    err = float(diff.max())
+    scale = max(1.0, float(want.abs().max()))
+    assert err <= BWD_TOL[dtype] * scale, (err, scale)
+    dnorm = float(diff.double().norm())
+    assert dnorm <= BWD_REL_L2[dtype] * float(want.double().norm()), \
+        (dnorm, float(want.double().norm()))
+
+
+def _cpu32(*tensors):
+    return [None if t is None else
+            (t.cpu().float() if t.is_floating_point() else t.cpu())
+            for t in tensors]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,C", [(8192, 768), (1, 128), (257, 4096),
+                                    (0, 256)])
+def test_layer_norm_bwd_kernel(rows, C, dtype):
+    """B2 against ``layer_norm_bwd_plain`` on the CPU; dgamma/dbeta come
+    out the same bits on a second run (fixed-order partials, no
+    atomics)."""
+    dev = _card()
+    g = torch.Generator(device="cpu").manual_seed(rows + C)
+    x = (torch.randn(rows, C, generator=g) * 3 + 1).to(dev, dtype)
+    gamma = (1 + 0.1 * torch.randn(C, generator=g)).to(dev, dtype)
+    beta = torch.randn(C, generator=g).to(dev, dtype)
+    dy = torch.randn(rows, C, generator=g).to(dev, dtype)
+    _, mean, rstd = k_ln.layer_norm_fwd(x, gamma, beta, 1e-5)
+    before = k_ln.launches_bwd
+    got = k_ln.layer_norm_bwd(x, gamma, mean, rstd, dy)
+    torch.cuda.synchronize()
+    assert k_ln.launches_bwd == before + 1
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32
+    want = k_ln.layer_norm_bwd_plain(*_cpu32(x, gamma, mean, rstd, dy))
+    for o, w in zip(got, want):
+        _close_to_cpu(o, w, dtype)
+    again = k_ln.layer_norm_bwd(x, gamma, mean, rstd, dy)
+    assert torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("B,H,S,vl", [
+    (16, 12, 512, [512, 0, 300, 1, 511, 64, 65, 200, 256, 384, 500, 17,
+                   129, 450, 333, 77]),
+    (2, 3, 77, None),
+    (1, 2, 130, [129])])
+def test_flash_attention_bwd_kernels(B, H, S, vl, causal, dtype):
+    """B4a (dk, dv) and B4b (dq) against their plain versions on the CPU,
+    from the same forward ``lse`` and ``delta``; each launch counter rises
+    by one."""
+    dev = _card()
+    g = torch.Generator(device="cpu").manual_seed(B * S + H)
+    q, k, v, do = (torch.randn(B, H, S, 64, generator=g).to(dev, dtype)
+                   for _ in range(4))
+    vlt = None if vl is None else torch.tensor(vl, dtype=torch.int32,
+                                               device=dev)
+    out, lse = k_fa.flash_attention_fwd(q, k, v, vlt, causal)
+    delta = (do.float() * out.float()).sum(-1)
+    before = (k_fa.launches_bwd_dkdv, k_fa.launches_bwd_dq)
+    dk, dv = k_fa.flash_attention_bwd_dkdv(q, k, v, vlt, lse, delta, do,
+                                           causal)
+    dq = k_fa.flash_attention_bwd_dq(q, k, v, vlt, lse, delta, do, causal)
+    torch.cuda.synchronize()
+    assert (k_fa.launches_bwd_dkdv, k_fa.launches_bwd_dq) == \
+        (before[0] + 1, before[1] + 1)
+    args = _cpu32(q, k, v, vlt, lse, delta, do)
+    want_dk, want_dv = k_fa.flash_attention_bwd_dkdv_plain(*args, causal)
+    want_dq = k_fa.flash_attention_bwd_dq_plain(*args, causal)
+    for o, w in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        _close_to_cpu(o, w, dtype)

@@ -12,8 +12,10 @@ import pytest
 import torch
 
 from mxnet_tpu_torch.base import MXNetError
-from mxnet_tpu_torch.gluon.model_zoo import TransformerModel
-from mxnet_tpu_torch.parallel import InferStep
+from mxnet_tpu_torch.gluon.model_zoo import BERTModel, TransformerModel
+from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+from mxnet_tpu_torch.optimizer import AdamW
+from mxnet_tpu_torch.parallel import InferStep, TrainStep
 
 TINY = dict(src_vocab=11, tgt_vocab=11, units=32, hidden_size=64,
             num_layers=1, num_heads=2, max_length=16, dropout=0.0)
@@ -52,3 +54,15 @@ def test_model_defaults_to_cuda():
         pytest.skip("a CUDA card is present")
     with pytest.raises(MXNetError, match="CUDA is not available"):
         TransformerModel(**TINY)
+
+
+def test_train_step_defaults_to_cuda():
+    """``TrainStep`` raises without a card unless asked for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    net = BERTModel(vocab_size=11, units=32, hidden_size=64, num_layers=1,
+                    num_heads=2, max_length=8, dropout=0.0, device="cpu")
+    loss = SoftmaxCrossEntropyLoss()
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        TrainStep(net, loss, AdamW())
+    TrainStep(net, loss, AdamW(), device="cpu")

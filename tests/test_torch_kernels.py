@@ -9,11 +9,14 @@ with numpy from a seed and handed to both sides as numpy arrays.
 Tolerance: both sides compute in float32 but sum in different orders
 (Pallas blocks of 128 keys, torch reductions), so results agree to a few
 ulps of the largest partial sum: 1e-5 absolute and relative on O(1)
-values.
+values. bfloat16 operands (the LayerNorm backward) are rounded the same
+way on both sides; the bfloat16 dx then differs by at most one rounding
+of its f32 value, held at 2e-2 of the tensor's largest magnitude.
 """
 
 import importlib
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -144,6 +147,130 @@ def test_flash_attention_op_offset_query_matches_jax():
     np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
 
 
+# ------------------------------------------------------------------ B2
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", [128, 768])
+@pytest.mark.parametrize("rows", [1, 255, 257, 600])
+def test_layer_norm_bwd_plain_matches_pallas(rows, C, dtype):
+    """``layer_norm_bwd_plain`` against ``_ln_bwd_impl`` (Pallas,
+    interpret mode) from the same forward statistics: rows below, at and
+    past one 256-row block, and the training path's C=768."""
+    rng = np.random.RandomState(rows * 7 + C)
+    x = (rng.randn(rows, C) * 3 + 1).astype(np.float32)
+    g = (rng.rand(C) + 0.5).astype(np.float32)
+    dy = rng.randn(rows, C).astype(np.float32)
+    jx, jg, jdy = (jnp.asarray(a).astype(dtype) for a in (x, g, dy))
+    _, mean, rstd = jax_ln._ln_fwd_impl(jx, jg, jg, 1e-5)
+    want = jax_ln._ln_bwd_impl(jx, jg, mean, rstd, jdy)
+    tdt = getattr(torch, dtype)
+    got = k_ln.layer_norm_bwd(
+        torch.from_numpy(x).to(tdt), torch.from_numpy(g).to(tdt),
+        torch.tensor(np.asarray(mean)), torch.tensor(np.asarray(rstd)),
+        torch.from_numpy(dy).to(tdt))
+    assert got[0].dtype == tdt and got[1].dtype == torch.float32
+    for w, o in zip(want, got):  # dx, dgamma, dbeta
+        w = np.asarray(w.astype(jnp.float32))
+        if dtype == "float32":
+            np.testing.assert_allclose(_np(o), w, **TOL)
+        else:
+            err = np.abs(_np(o.float()) - w).max()
+            assert err <= 2e-2 * np.abs(w).max(), err
+    assert k_ln.launches_bwd == 0
+
+
+@pytest.mark.parametrize("route", ["kernel", "composition"])
+def test_layer_norm_op_gradient_matches_jax(route):
+    """Gradients of ``ops.nn.layer_norm`` against ``jax.grad`` of the JAX
+    op: the kernel route (K1 forward, B2 backward) and the composition
+    (torch autograd)."""
+    shape, axis = ((2, 5, 128), -1) if route == "kernel" else ((4, 96, 6), 1)
+    rng = np.random.RandomState(11)
+    x = rng.randn(*shape).astype(np.float32)
+    C = shape[axis]
+    g = (rng.rand(C) + 0.5).astype(np.float32)
+    b = rng.randn(C).astype(np.float32)
+    w = rng.randn(*shape).astype(np.float32)
+
+    def jloss(x, g, b):
+        return (jax_nn.layer_norm(x, g, b, axis=axis) * w).sum()
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(
+        jnp.asarray(x), jnp.asarray(g), jnp.asarray(b))
+    tx, tg, tb = (torch.from_numpy(a).requires_grad_() for a in (x, g, b))
+    (nn.layer_norm(tx, tg, tb, axis=axis) * torch.from_numpy(w)).sum() \
+        .backward()
+    for t, wg in zip((tx, tg, tb), want):
+        np.testing.assert_allclose(_np(t.grad), np.asarray(wg), **TOL)
+
+
+# ------------------------------------------------------------------ B4
+@pytest.mark.parametrize("oracle", ["pallas", "xla"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("S,vl", [(128, [128, 0]), (200, [1, 200])])
+def test_flash_attention_bwd_plain_matches_jax(S, vl, causal, oracle):
+    """``flash_attention_bwd_plain`` against both JAX backwards, called
+    directly: ``_flash_bwd_pallas`` (the two Pallas kernels, interpret
+    mode) and ``_flash_bwd_xla`` (the blockwise scan). B2 H2 D64; valid
+    lengths 0, 1 and S; S=200 is not a multiple of the 128-row Pallas
+    block."""
+    rng = np.random.RandomState(S + sum(vl) + causal)
+    q, k, v, do = (rng.randn(2, 2, S, 64).astype(np.float32)
+                   for _ in range(4))
+    vl_np = np.asarray(vl, np.int32)
+    scale = 64 ** -0.5
+    jq, jk, jv, jdo, jvl = (jnp.asarray(a) for a in (q, k, v, do, vl_np))
+    out, lse = jax_fa._flash_fwd(jq, jk, jv, jvl, causal, scale, 128, 128)
+    if oracle == "pallas":
+        want = jax_fa._flash_bwd_pallas(jq, jk, jv, jvl, out, lse, jdo,
+                                        causal, scale)
+    else:
+        want = jax_fa._flash_bwd_xla(jq, jk, jv, jvl, out, lse, jdo, causal,
+                                     scale, 128)
+    got = k_fa.flash_attention_bwd(
+        *(torch.from_numpy(a) for a in (q, k, v, vl_np)),
+        torch.tensor(np.asarray(out)), torch.tensor(np.asarray(lse)),
+        torch.from_numpy(do), causal, scale)
+    for w, o in zip(want, got):  # dq, dk, dv
+        np.testing.assert_allclose(_np(o), np.asarray(w), **TOL)
+    row0 = vl.index(0) if 0 in vl else None
+    if row0 is not None:  # no visible key: no gradient anywhere
+        assert not any(_np(o)[row0].any() for o in got)
+    assert k_fa.launches_bwd_dkdv == 0 and k_fa.launches_bwd_dq == 0
+
+
+@pytest.mark.parametrize("dense_max", ["256", "0"])
+@pytest.mark.parametrize("vl,causal", [(None, False), ([40, 0, 23], False),
+                                       ([40, 0, 23], True)])
+def test_flash_attention_op_gradient_matches_jax(monkeypatch, dense_max,
+                                                 vl, causal):
+    """Gradients of ``ops.contrib.flash_attention`` (BSHD) against
+    ``jax.grad`` of ``_flash_attention_op``: ``MXTPU_ATTN_DENSE_MAX=256``
+    keeps S=40 on the dense path (torch autograd / XLA), 0 sends it to
+    the flash route (K2 + B4 / the Pallas forward and its backward)."""
+    monkeypatch.setenv("MXTPU_ATTN_DENSE_MAX", dense_max)
+    rng = np.random.RandomState(5)
+    shape = (3, 40, 2, 64)  # (B, S, H, D)
+    q, k, v, w = (rng.randn(*shape).astype(np.float32) for _ in range(4))
+    vl_np = None if vl is None else np.asarray(vl, np.int32)
+
+    def jloss(q, k, v):
+        out = jax_contrib._flash_attention_op(
+            q, k, v, valid_length=None if vl is None else jnp.asarray(vl_np),
+            causal=causal, layout="BSHD")
+        return (out * w).sum()
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = contrib.flash_attention(
+        tq, tk, tv, None if vl is None else torch.from_numpy(vl_np),
+        causal=causal)
+    (out * torch.from_numpy(w)).sum().backward()
+    for t, wg in zip((tq, tk, tv), want):
+        assert np.isfinite(_np(t.grad)).all()
+        np.testing.assert_allclose(_np(t.grad), np.asarray(wg), **TOL)
+
+
 # ------------------------------------------------------------------ K3
 def test_paged_decode_plain_matches_pallas():
     """Mid-page tails, an inactive row whose whole table is the trash
@@ -173,9 +300,16 @@ def test_wrappers_refuse_other_devices():
     x = torch.zeros((2, 128), device="meta")
     with pytest.raises(MXNetError):
         k_ln.layer_norm_fwd(x, x[0], x[0])
+    with pytest.raises(MXNetError):
+        k_ln.layer_norm_bwd(x, x[0], x[:, :1], x[:, :1], x)
     q = torch.zeros((1, 1, 4, 32), device="meta")
     with pytest.raises(MXNetError):
         k_fa.flash_attention_fwd(q, q, q)
+    stats = torch.zeros((1, 1, 4), device="meta")
+    with pytest.raises(MXNetError):
+        k_fa.flash_attention_bwd_dkdv(q, q, q, None, stats, stats, q)
+    with pytest.raises(MXNetError):
+        k_fa.flash_attention_bwd_dq(q, q, q, None, stats, stats, q)
     with pytest.raises(MXNetError):
         k_pa.paged_decode_attention(
             torch.zeros((1, 1, 32), device="meta"),
