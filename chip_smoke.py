@@ -29,6 +29,19 @@ warm-up and 10 timed steps through ``TrainStep`` and checks the losses,
 every kernel's launch count against the model's structure, and one
 profiled step.
 
+ResNet: checks the BatchNorm kernels (B7 statistics, B8 backward sums)
+at all nine shapes of the ResNet-50 step in float32 and bfloat16, on a
+cancellation input (mean 1000, std 0.5) and at an M that no chunk
+divides, against their plain versions on CPU float32 copies, and times
+them at the stem and stage 4 beside ``torch.batch_norm_stats`` and
+``torch.batch_norm_backward_reduce``; trains a narrow channel-last
+ResNet v1 for two SGD steps on the card and on the CPU from the same
+weights and compares losses, parameters and running statistics; trains
+ResNet-50 v1 (channel-last, SGD momentum 0.9, bf16 compute, B=64,
+224x224, ``bench_resnet50.py``'s configuration) for 2 warm-up and 10
+timed steps and checks the losses, the launch counts (one B7 and one B8
+per BatchNorm per step) and one profiled step.
+
 It prints one ``{"kernels": [...]}`` line, the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as its last line. Any failed
 check exits non-zero; without a card it exits non-zero before doing
@@ -67,6 +80,19 @@ TRAIN_WARMUP, TRAIN_STEPS = 2, 10
 # valid lengths of the backward kernel checks (a row with none, too)
 KCHECK_VL = [512, 0, 300, 1, 511, 64, 65, 200, 256, 384, 500, 17, 129,
              450, 333, 77]
+# the vision configuration of the port's third slice:
+# benchmarks/bench_resnet50.py:19-45 (ResNet-50 v1, SGD lr 0.1 momentum
+# 0.9, bf16 compute and state) in the channel-last layout, B=64 at 224x224
+RESNET_B, RESNET_HW, RESNET_CLASSES = 64, 224, 1000
+RESNET_WARMUP, RESNET_STEPS = 2, 10
+# no loss of that run may pass this multiple of the first (about ln 1000
+# at Xavier init): the momentum overshoot stays well under it, a bf16 run
+# that diverges does not
+RESNET_LOSS_CAP = 1.5
+# (M, C) of its 53 BatchNorms (launches per step): the kernels' shapes
+BN_PATH_SHAPES = [(802816, 64, 1), (200704, 64, 6), (200704, 256, 4),
+                  (50176, 128, 8), (50176, 512, 5), (12544, 256, 12),
+                  (12544, 1024, 7), (3136, 512, 6), (3136, 2048, 4)]
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, float32
 # operations/s outside the tensor cores, and the dense bf16 tensor-core
 # rate. The kernels compute bf16 inputs in f32; a bound states the least
@@ -92,6 +118,19 @@ CPU_REL_L2 = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # the training cross-check (2 layers, f32, two AdamW steps, card vs CPU)
 XTRAIN_LOSS_RTOL = 1e-4
 XTRAIN_PARAM_ATOL = 2e-5
+# the BatchNorm kernels' outputs are f32 sums of the same (bf16-exact)
+# inputs as the CPU oracle's, in another order: the f32 bounds of
+# CPU_TOL / CPU_REL_L2 hold for both input dtypes; the cancellation
+# input's variance is held to the float64 one within 1e-4 relative (the
+# bound the JAX package's kernel meets)
+BN_CANCEL_RTOL = 1e-4
+# the narrow ResNet cross-check (f32, TF32 off, two SGD steps at lr 0.1,
+# card vs CPU): each step amplifies the sums' round-off about tenfold
+# (the CPU parity test with the JAX package reads 3e-7 then 1.2e-6 on
+# the losses), so losses within 1e-4 relative; parameters and running
+# statistics within 1e-4 of max(1, their largest entry)
+XRESNET_LOSS_RTOL = 1e-4
+XRESNET_PARAM_TOL = 1e-4
 
 
 def fail(msg):
@@ -541,8 +580,116 @@ def check_flash_attention_bwd(dev, gen):
              max_abs_err_train_bf16=errs["fwd", torch.bfloat16])
 
 
+def check_batch_norm(dev, gen):
+    """B7 and B8 at the nine shapes of the ResNet-50 step in f32 and
+    bf16, on the cancellation input and at an M no chunk divides, against
+    their plain versions on CPU f32 copies (launch counter, finite,
+    max-abs and relative-L2 bounds, the same bits on a second call);
+    timed in bf16 at the stem and at stage 4. Returns both entries."""
+    from mxnet_tpu_torch.ops.kernels import batch_norm as K
+
+    errs = {("stats", dt): 0.0 for dt in (torch.float32, torch.bfloat16)}
+    errs.update({("bwd", dt): 0.0 for dt in (torch.float32, torch.bfloat16)})
+    cases = [(M, C, dt, 0.5, 1.0) for M, C, _ in BN_PATH_SHAPES
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [(50176, 64, torch.float32, 1000.0, 0.5),  # cancellation
+              (100003, 320, torch.bfloat16, 0.5, 1.0),  # ragged M
+              (4099, 7, torch.float32, 0.5, 1.0)]  # C off the vector
+    for M, C, dt, mu, sd in cases:
+        tag = f"M={M} C={C} {dt} mean={mu} std={sd}"
+        x = (torch.randn(M, C, generator=gen) * sd + mu).to(dev, dt)
+        dy = torch.randn(M, C, generator=gen).to(dev, dt)
+        n0 = K.launches_stats
+        mean, var = K.bn_stats(x)
+        torch.cuda.synchronize()
+        launched = K.launches_stats - n0
+        want_m, want_v = K.bn_stats_plain(*cpu_f32(x))
+        e = max(check_vs_cpu(f"bn_stats mean {tag}", mean, want_m,
+                             torch.float32, launched, may_match=True),
+                check_vs_cpu(f"bn_stats var {tag}", var, want_v,
+                             torch.float32, launched, may_match=True))
+        errs["stats", dt] = max(errs["stats", dt], e)
+        if mu == 1000.0:
+            ref = x.double().var(dim=0, unbiased=False).cpu()
+            rel = float(((var.double().cpu() - ref) / ref).abs().max())
+            ok = rel <= BN_CANCEL_RTOL
+            print(f"check bn_stats var vs float64 {tag}: max rel {rel:.3e} "
+                  f"tol {BN_CANCEL_RTOL:.0e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail("bn_stats loses the variance to cancellation")
+        inv = torch.rsqrt(var + 1e-5)
+        n0 = K.launches_bwd
+        sd_, sdx = K.bn_bwd_reduce(x, dy, mean, inv)
+        torch.cuda.synchronize()
+        launched = K.launches_bwd - n0
+        want_sd, want_sdx = K.bn_bwd_reduce_plain(*cpu_f32(x, dy, mean,
+                                                          inv))
+        e = max(check_vs_cpu(f"bn_bwd_reduce sum_dy {tag}", sd_, want_sd,
+                             torch.float32, launched, may_match=True),
+                check_vs_cpu(f"bn_bwd_reduce sum_dy_xhat {tag}", sdx,
+                             want_sdx, torch.float32, launched,
+                             may_match=True))
+        errs["bwd", dt] = max(errs["bwd", dt], e)
+        again = K.bn_stats(x) + K.bn_bwd_reduce(x, dy, mean, inv)
+        if not all(torch.equal(a, b) for a, b in zip(again,
+                                                     (mean, var, sd_, sdx))):
+            fail(f"bn kernels: a second call gave other bits ({tag})")
+    timings = {}
+    for (N, H, C) in ((RESNET_B, 112, 64), (RESNET_B, 7, 2048)):
+        M = N * H * H
+        x = (torch.randn(M, C, generator=gen) + 0.5).to(dev, torch.bfloat16)
+        dy = torch.randn(M, C, generator=gen).to(dev, torch.bfloat16)
+        mean, var = K.bn_stats(x)
+        inv = torch.rsqrt(var + 1e-5)
+        w = torch.ones(C, device=dev)
+
+        def nchw(t):  # the NHWC tensor as PyTorch's channels_last NCHW
+            return t.view(N, H, H, C).permute(0, 3, 1, 2)
+
+        res = {}
+        for part, nbytes, fn, plain, lib in (
+                ("stats", M * C * 2 + 2 * C * 4,
+                 lambda x, dy, m, i: K.bn_stats(x),
+                 lambda x, dy, m, i: K.bn_stats_plain(x),
+                 lambda x, dy, m, i: torch.batch_norm_stats(nchw(x), 1e-5)),
+                ("bwd", 2 * M * C * 2 + 4 * C * 4,
+                 lambda x, dy, m, i: K.bn_bwd_reduce(x, dy, m, i),
+                 lambda x, dy, m, i: K.bn_bwd_reduce_plain(x, dy, m, i),
+                 lambda x, dy, m, i: torch.batch_norm_backward_reduce(
+                     nchw(dy), nchw(x), m, i, w, True, False, False))):
+            flops = (3 if part == "stats" else 5) * M * C
+            bnd, by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
+            sets = cold_copies((x, dy, mean, inv), nbytes)
+            res[part] = dict(ms=time_ms(fn, sets),
+                             plain_ms=time_ms(plain, sets),
+                             library_ms=time_ms(lib, sets), bound_ms=bnd,
+                             bound_by=by)
+        timings[M, C] = res
+        print(f"timing bn M={M} C={C} (N={N} H=W={H}) bf16 (library: "
+              f"batch_norm_stats / batch_norm_backward_reduce on the "
+              f"channels_last view): {json.dumps(res)}")
+    stem = timings[RESNET_B * 112 * 112, 64]
+    s4 = {f"stage4_{k}": v for k, v in
+          timings[RESNET_B * 49, 2048]["stats"].items() if k != "bound_by"}
+    s4b = {f"stage4_{k}": v for k, v in
+           timings[RESNET_B * 49, 2048]["bwd"].items() if k != "bound_by"}
+    return [dict(name="bn_stats", route="cuda",
+                 source="mxnet_tpu_torch/csrc/batch_norm.cu",
+                 replaces="mxnet_tpu/ops/pallas/batch_norm.py:80",
+                 max_abs_err=errs["stats", torch.float32],
+                 max_abs_err_bf16=errs["stats", torch.bfloat16],
+                 **stem["stats"], **s4),
+            dict(name="bn_bwd_reduce", route="cuda",
+                 source="mxnet_tpu_torch/csrc/batch_norm.cu",
+                 replaces="mxnet_tpu/ops/pallas/batch_norm.py:160",
+                 max_abs_err=errs["bwd", torch.float32],
+                 max_abs_err_bf16=errs["bwd", torch.bfloat16],
+                 **stem["bwd"], **s4b)]
+
+
 def counters():
     """Every kernel's launch counter: name -> (wrapper module, attr)."""
+    from mxnet_tpu_torch.ops.kernels import batch_norm as k_bn
     from mxnet_tpu_torch.ops.kernels import flash_attention as k_fa
     from mxnet_tpu_torch.ops.kernels import layer_norm as k_ln
     from mxnet_tpu_torch.ops.kernels import paged_attention as k_pa
@@ -552,7 +699,9 @@ def counters():
             "paged_decode_attention": (k_pa, "launches"),
             "layer_norm_bwd": (k_ln, "launches_bwd"),
             "flash_attention_bwd_dkdv": (k_fa, "launches_bwd_dkdv"),
-            "flash_attention_bwd_dq": (k_fa, "launches_bwd_dq")}
+            "flash_attention_bwd_dq": (k_fa, "launches_bwd_dq"),
+            "bn_stats": (k_bn, "launches_stats"),
+            "bn_bwd_reduce": (k_bn, "launches_bwd")}
 
 
 def reset_counts():
@@ -799,7 +948,8 @@ def train(dev, tag):
     want = {"layer_norm_fwd": n_ln, "layer_norm_bwd": n_ln,
             "flash_attention_fwd": n_attn,
             "flash_attention_bwd_dkdv": n_attn,
-            "flash_attention_bwd_dq": n_attn, "paged_decode_attention": 0}
+            "flash_attention_bwd_dq": n_attn, "paged_decode_attention": 0,
+            "bn_stats": 0, "bn_bwd_reduce": 0}
     want = {k: n * TRAIN_STEPS for k, n in want.items()}
     tokens = TRAIN_B * TRAIN_S
     ms = sorted(t * 1e3 for t in times)
@@ -824,6 +974,207 @@ def train(dev, tag):
         prof["device_ms_over_step_p50"] = round(
             prof["device_ms"] / statistics.median(ms), 3)
     print(f"train profile (one step under torch.profiler): "
+          f"{json.dumps(prof) if prof else 'no device time recorded'}")
+    return counts
+
+
+# ------------------------------------------------------------- ResNet
+def resnet_batch(B, hw, classes, seed):
+    """Seeded channel-last images in [0, 1) and float32 labels, as
+    ``bench_resnet50.py`` draws them (``rand``, ``randint``)."""
+    rng = np.random.RandomState(seed)
+    x = rng.rand(B, hw, hw, 3).astype(np.float32)
+    y = rng.randint(0, classes, B).astype(np.float32)
+    return x, y
+
+
+def resnet_cross_check(dev):
+    """A narrow channel-last ResNet v1 trained for two SGD steps (lr 0.1,
+    momentum 0.9) on the card and on the CPU from the same weights, f32,
+    TF32 off (set in ``main``), 8x64x64x3: losses, parameters and running
+    statistics; B7 and B8 launch once per BatchNorm per step on the card,
+    never on the CPU."""
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.vision import (BottleneckV1,
+                                                         ResNetV1)
+    from mxnet_tpu_torch.gluon.nn import BatchNorm
+    from mxnet_tpu_torch.optimizer import SGD
+    from mxnet_tpu_torch.parallel import TrainStep
+
+    # cuDNN's default algorithms are not deterministic: two card runs of
+    # these steps differ, and in 2 of 5 a ReLU or max-pool kink falls the
+    # other way and moves the stem's weight by 3.0e-4. Deterministic
+    # algorithms give the same bits in every run (2.2e-6 from the CPU).
+    arch = (BottleneckV1, [1, 1, 1, 1], [16, 32, 64, 128, 256])
+    batch = resnet_batch(8, 64, 10, SEED + 2)
+    cpu_net = ResNetV1(*arch, classes=10, layout="NHWC",
+                       device="cpu").initialize(SEED)
+    card_net = ResNetV1(*arch, classes=10, layout="NHWC")
+    card_net.load_state_dict(cpu_net.state_dict())
+    n_bn = sum(isinstance(m, BatchNorm) for m in cpu_net.modules())
+    losses, launched = {}, {}
+    was_deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, net in (("card", card_net), ("cpu", cpu_net)):
+            step = TrainStep(net, SoftmaxCrossEntropyLoss(),
+                             SGD(learning_rate=0.1, momentum=0.9),
+                             device=net.output.weight.device)
+            reset_counts()
+            losses[name] = [float(step(*batch)) for _ in range(2)]
+            launched[name] = read_counts()
+    finally:
+        torch.backends.cudnn.deterministic = was_deterministic
+    rel = max(abs(a - b) / abs(b)
+              for a, b in zip(losses["card"], losses["cpu"]))
+    worst, worst_name = 0.0, None
+    card_sd = card_net.state_dict()
+    for n, b in cpu_net.state_dict().items():
+        err = float((card_sd[n].cpu() - b).abs().max()) \
+            / max(1.0, float(b.abs().max()))
+        if err > worst:
+            worst, worst_name = err, n
+    card_k = launched["card"]
+    print(f"resnet cross-check card vs cpu (narrow ResNet v1 NHWC, f32, "
+          f"8x64x64x3, 2 SGD steps): losses card {losses['card']} cpu "
+          f"{losses['cpu']} max rel {rel:.3e} tol {XRESNET_LOSS_RTOL:.0e}; "
+          f"parameters and running statistics max err {worst:.3e} "
+          f"({worst_name}) tol {XRESNET_PARAM_TOL:.0e}; card launches "
+          f"{json.dumps(card_k)} ({n_bn} BatchNorms; cuDNN deterministic, "
+          f"TF32 {torch.backends.cudnn.allow_tf32})")
+    if rel > XRESNET_LOSS_RTOL or worst > XRESNET_PARAM_TOL:
+        fail("the card's ResNet steps disagree with the CPU's")
+    if card_k["bn_stats"] != 2 * n_bn or card_k["bn_bwd_reduce"] != 2 * n_bn \
+            or any(launched["cpu"].values()):
+        fail("the ResNet cross-check did not launch B7/B8 once per "
+             "BatchNorm per step on the card (or the CPU run launched one)")
+
+
+def profile_resnet_step(step, batch):
+    """One ResNet training step under ``torch.profiler``: device time by
+    group, the device's busy share of the step's wall time, and the SGD
+    loop's span between two CUDA events around the update."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def group(name):
+        if "bn_partial_kernel" in name:
+            return "B7 bn_stats" if ", false>" in name else \
+                "B8 bn_bwd_reduce"
+        if "bn_reduce_kernel" in name:
+            return "B7 bn_stats" if ", true>" in name else \
+                "B8 bn_bwd_reduce"
+        if any(p in name.lower() for p in (
+                "conv", "cudnn", "xmma", "implicit", "dgrad", "wgrad",
+                "fprop", "gemm", "cutlass", "nvjet", "sm90")):
+            return "convolutions and products (cuDNN/cuBLAS)"
+        return "other (elementwise, casts, pooling, loss, SGD)"
+
+    span = {}
+    update = step._update
+
+    def timed_update(grads):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        update(grads)
+        b.record()
+        span["events"] = (a, b)
+
+    torch.cuda.synchronize()
+    step._update = timed_update
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            float(step(*batch))
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        step._update = update
+    torch.cuda.synchronize()
+    sgd_ms = span["events"][0].elapsed_time(span["events"][1])
+    by_group = {}
+    for ev in prof.key_averages():
+        if "cuda" not in str(getattr(ev, "device_type", "")).lower():
+            continue
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = ev.cuda_time_total
+        g = group(ev.key)
+        by_group[g] = by_group.get(g, 0.0) + us / 1e3
+    busy = sum(by_group.values())
+    if busy <= 0:
+        return None
+    return dict(wall_ms=round(wall_ms, 3), device_ms=round(busy, 3),
+                busy_share=round(busy / wall_ms, 3),
+                sgd_loop_span_ms=round(sgd_ms, 3),
+                by_group_ms={g: round(t, 4) for g, t in
+                             sorted(by_group.items(), key=lambda x: -x[1])})
+
+
+def resnet(dev, tag):
+    """ResNet-50 v1, channel-last, SGD momentum 0.9, bf16 compute and
+    state, B=64 at 224x224 (``bench_resnet50.py`` with
+    ``steps_per_call=1``): 2 warm-up and 10 timed steps on one batch.
+    Checks the losses and B7/B8's launches (one each per BatchNorm per
+    step); returns the launch counts of the timed steps."""
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+    from mxnet_tpu_torch.gluon.nn import BatchNorm
+    from mxnet_tpu_torch.optimizer import SGD
+    from mxnet_tpu_torch.parallel import TrainStep
+
+    net = get_model("resnet50_v1", layout="NHWC").initialize(SEED)
+    n_bn = sum(isinstance(m, BatchNorm) for m in net.modules())
+    n_par = sum(v.numel() for v in net.state_dict().values())
+    step = TrainStep(net, SoftmaxCrossEntropyLoss(),
+                     SGD(learning_rate=0.1, momentum=0.9),
+                     compute_dtype="bfloat16", state_dtype="bfloat16")
+    x, y = resnet_batch(RESNET_B, RESNET_HW, RESNET_CLASSES, SEED)
+    batch = (torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev))
+    losses = [float(step(*batch)) for _ in range(RESNET_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times = []
+    for _ in range(RESNET_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step(*batch)))  # float() waits for the step
+        times.append(time.perf_counter() - t0)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: 0 for k in counts}
+    want["bn_stats"] = want["bn_bwd_reduce"] = n_bn * RESNET_STEPS
+    ms = sorted(t * 1e3 for t in times)
+    rm = net.features[1].running_mean
+    print(f"resnet [{tag}]: ResNet-50 v1 NHWC bf16 SGD(0.1, momentum 0.9) "
+          f"B={RESNET_B} {RESNET_HW}x{RESNET_HW}, {n_par} values (parameters "
+          f"and running statistics), "
+          f"{n_bn} BatchNorms, {RESNET_STEPS} steps after {RESNET_WARMUP} "
+          f"warm-up: {RESNET_STEPS * RESNET_B / sum(times):.2f} images/s "
+          f"({RESNET_STEPS * RESNET_B} images in {sum(times):.6f} s); step "
+          f"p50 {statistics.median(ms):.3f} ms, min {ms[0]:.3f}, max "
+          f"{ms[-1]:.3f}; max_memory_allocated {peak} bytes; losses "
+          f"{[round(v, 5) for v in losses]}; running stats {rm.dtype}; "
+          f"launches {json.dumps(counts)}")
+    # lr 0.1 with momentum 0.9 and no warm-up overshoots on the fixed
+    # batch (heavy-ball oscillation), so the losses need not fall at every
+    # step. The first step and the last loss must fall below the first
+    # loss, and no loss may pass RESNET_LOSS_CAP times it: a run that
+    # diverges mid-way and happens to end low still fails.
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[1] < losses[0] or not losses[-1] < losses[0] or \
+            max(losses) > RESNET_LOSS_CAP * losses[0]:
+        fail(f"ResNet losses are not finite, do not fall or overshoot "
+             f"{RESNET_LOSS_CAP}x the first: {losses}")
+    if counts != want:
+        fail(f"launches {counts} differ from the model's structure {want}")
+    if n_bn != 53 or n_par != 25_629_032:
+        fail(f"not ResNet-50 v1: {n_bn} BatchNorms, {n_par} values")
+    prof = profile_resnet_step(step, batch)
+    if prof:
+        prof["device_ms_over_step_p50"] = round(
+            prof["device_ms"] / statistics.median(ms), 3)
+    print(f"resnet profile (one step under torch.profiler): "
           f"{json.dumps(prof) if prof else 'no device time recorded'}")
     return counts
 
@@ -926,11 +1277,17 @@ def main():
     train_cross_check(dev)
     trained = train(dev, f"{kind}, {smi}")
 
+    # -------------------------------------------------------- ResNet phase
+    kernels.extend(check_batch_norm(dev, gen))
+    resnet_cross_check(dev)
+    resnet_counts = resnet(dev, f"{kind}, {smi}")
+
     for entry in kernels:
         name = entry["name"]
-        entry["launches"] = served[name] + trained[name]
-        entry["launches_by_path"] = {"serve": served[name],
-                                     "train": trained[name]}
+        paths = {"serve": served[name], "train": trained[name],
+                 "resnet": resnet_counts[name]}
+        entry["launches"] = sum(paths.values())
+        entry["launches_by_path"] = paths
     print(json.dumps({"kernels": kernels}))
     print(smi)  # name, power limit
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

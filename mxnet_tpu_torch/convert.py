@@ -8,9 +8,11 @@ structural parameter names of ``Block._collect_params_with_prefix``
 for the Transformer or ``encoder.layers.0.attention.qkv_proj.weight``
 for BERT. The port's modules use the same names and layouts (Dense
 weights are ``(out, in)`` in both packages), so loading is a
-name-for-name copy. The
-port keeps its own reader of that file: it imports nothing of the JAX
-package.
+name-for-name copy. The JAX package saves BatchNorm's running statistics
+as parameters with ``grad_req="null"`` (``features.1.running_mean``); in
+the port they are buffers of the same names and load under the same
+rule. The port keeps its own reader of that file: it imports nothing of
+the JAX package.
 """
 
 from __future__ import annotations
@@ -43,15 +45,19 @@ def read_params_npz(path) -> dict:
 
 @torch.no_grad()
 def load_mxnet_tpu_params(src, model) -> None:
-    """Copy ``src`` into ``model``'s parameters by structural name.
+    """Copy ``src`` into ``model``'s parameters and persistent buffers by
+    structural name.
 
     ``src`` is a dict of numpy arrays keyed by structural name, or the
-    path of a ``save_parameters`` ``.npz``. Every parameter of the model
-    must be present with its exact shape, and every entry of ``src``
-    must match a parameter; anything else raises ``MXNetError``. Values
-    are cast to each parameter's dtype and device."""
+    path of a ``save_parameters`` ``.npz``. Every parameter and persistent
+    buffer of the model must be present with its exact shape, and every
+    entry of ``src`` must match one; anything else raises ``MXNetError``.
+    Values are cast to each target's dtype and device."""
     arrays = src if isinstance(src, dict) else read_params_npz(src)
+    persistent = set(model.state_dict())
     params = dict(model.named_parameters())
+    params.update((n, b) for n, b in model.named_buffers()
+                  if n in persistent)
     missing = sorted(set(params) - set(arrays))
     extra = sorted(set(arrays) - set(params))
     if missing or extra:
@@ -62,4 +68,4 @@ def load_mxnet_tpu_params(src, model) -> None:
         if tuple(v.shape) != tuple(p.shape):
             raise MXNetError(f"shape mismatch for {name!r}: source "
                              f"{tuple(v.shape)} != model {tuple(p.shape)}")
-        p.copy_(torch.from_numpy(np.ascontiguousarray(v)).to(p.dtype))
+        p.copy_(torch.tensor(v, dtype=p.dtype))

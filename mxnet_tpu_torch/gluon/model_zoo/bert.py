@@ -31,9 +31,11 @@ __all__ = ["PositionwiseFFN", "BERTEncoderLayer", "BERTEncoder",
 class PositionwiseFFN(nn.Module):
     def __init__(self, units, hidden_size, dropout, dtype, device):
         super().__init__()
-        self.ffn_1 = Dense(hidden_size, units, dtype=dtype, device=device)
+        self.ffn_1 = Dense(hidden_size, units, flatten=False, dtype=dtype,
+                           device=device)
         self.act = GELU()
-        self.ffn_2 = Dense(units, hidden_size, dtype=dtype, device=device)
+        self.ffn_2 = Dense(units, hidden_size, flatten=False, dtype=dtype,
+                           device=device)
         self.drop = Dropout(dropout)
 
     def forward(self, x):
@@ -100,7 +102,8 @@ class BERTModel(nn.Module):
         self.embed_drop = Dropout(dropout)
         self.encoder = BERTEncoder(num_layers, units, hidden_size, num_heads,
                                    dropout, dtype, dev)
-        self.pooler = Dense(units, units, activation="tanh", **kw)
+        self.pooler = Dense(units, units, activation="tanh", flatten=False,
+                            **kw)
 
     def initialize(self, seed=0):
         """Seeded Xavier init (``initializer.xavier_``)."""

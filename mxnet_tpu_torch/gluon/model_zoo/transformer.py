@@ -33,8 +33,9 @@ class _FFN(nn.Module):
     def __init__(self, units, hidden_size, dropout, dtype, device):
         super().__init__()
         self.ffn_1 = Dense(hidden_size, units, activation="relu",
-                           dtype=dtype, device=device)
-        self.ffn_2 = Dense(units, hidden_size, dtype=dtype, device=device)
+                           flatten=False, dtype=dtype, device=device)
+        self.ffn_2 = Dense(units, hidden_size, flatten=False, dtype=dtype,
+                           device=device)
         self.drop = Dropout(dropout)
 
     def forward(self, x):

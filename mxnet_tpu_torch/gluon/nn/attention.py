@@ -49,7 +49,8 @@ class MultiHeadAttention(nn.Module):
         self._head_dim = units // num_heads
         self._causal = causal
         self._self_attention = self_attention
-        kw = dict(use_bias=use_bias, dtype=dtype, device=device)
+        kw = dict(use_bias=use_bias, flatten=False, dtype=dtype,
+                  device=device)
         if self_attention:
             self.qkv_proj = Dense(3 * units, units, **kw)
         else:

@@ -13,13 +13,24 @@ import math
 
 import torch
 
-__all__ = ["xavier_"]
+__all__ = ["xavier_", "xavier_bound"]
+
+
+def xavier_bound(shape, magnitude=3.0):
+    """Half-width of the uniform Xavier draw for a weight of ``shape``
+    (``mxnet_tpu/initializer.py:246-250``): both fans are multiplied by
+    the receptive field ``prod(shape[2:])`` of a convolution weight."""
+    hw = math.prod(shape[2:])
+    fan_in, fan_out = shape[1] * hw, shape[0] * hw
+    return math.sqrt(magnitude / ((fan_in + fan_out) / 2.0))
 
 
 @torch.no_grad()
 def xavier_(module, seed=0):
-    """Fill ``module``'s parameters in place: Xavier on every matrix,
-    LayerNorm gamma one, biases and beta zero. Returns ``module``."""
+    """Fill ``module``'s parameters in place: Xavier on every weight
+    (matrices and convolution kernels), LayerNorm and BatchNorm gamma
+    one, biases and beta zero. Buffers (BatchNorm's running statistics)
+    keep their construction values. Returns ``module``."""
     gen = torch.Generator().manual_seed(int(seed))
     for name, p in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
@@ -28,8 +39,7 @@ def xavier_(module, seed=0):
         elif leaf in ("bias", "beta"):
             p.zero_()
         else:
-            fan_out, fan_in = p.shape[0], p.shape[1]
-            scale = math.sqrt(3.0 / ((fan_in + fan_out) / 2.0))
+            scale = xavier_bound(p.shape)
             w = torch.rand(p.shape, generator=gen) * (2 * scale) - scale
             p.copy_(w)
     return module

@@ -7,6 +7,7 @@ sources are ``mxnet_tpu_torch/csrc/*.cu``, built at first launch by
 ``_build``.
 """
 
-from . import flash_attention, layer_norm, paged_attention
+from . import batch_norm, flash_attention, layer_norm, paged_attention
 
-__all__ = ["layer_norm", "flash_attention", "paged_attention"]
+__all__ = ["layer_norm", "flash_attention", "paged_attention",
+           "batch_norm"]

@@ -1,5 +1,6 @@
-"""Counterpart of ``mxnet_tpu/optimizer/`` for the training slice."""
+"""Counterpart of ``mxnet_tpu/optimizer/`` for the training and vision
+slices."""
 
-from .optimizer import AdamW, Optimizer
+from .optimizer import SGD, AdamW, Optimizer
 
-__all__ = ["Optimizer", "AdamW"]
+__all__ = ["Optimizer", "SGD", "AdamW"]

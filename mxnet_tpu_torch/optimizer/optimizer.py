@@ -1,10 +1,11 @@
-"""Optimizers of the training slice.
+"""Optimizers of the training and vision slices.
 
 Counterpart of ``mxnet_tpu/optimizer/optimizer.py``: the ``Optimizer``
 base's hyper-parameters (``learning_rate``, ``wd``, ``clip_gradient``,
-``rescale_grad``, per-parameter ``lr_mult``/``wd_mult``) and ``AdamW``
-(:406-431). The update itself runs in ``parallel.TrainStep`` through
-``ops.optimizer_op``; the per-parameter ``Updater`` path is not ported.
+``rescale_grad``, per-parameter ``lr_mult``/``wd_mult``), ``SGD`` (:278)
+and ``AdamW`` (:406-431). The update itself runs in
+``parallel.TrainStep`` through ``ops.optimizer_op``; the per-parameter
+``Updater`` path is not ported.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import math
 
 from ..ops import optimizer_op as _ops
 
-__all__ = ["Optimizer", "AdamW"]
+__all__ = ["Optimizer", "SGD", "AdamW"]
 
 
 class Optimizer:
@@ -35,6 +36,32 @@ class Optimizer:
 
     def set_wd_mult(self, args_wd_mult):
         self.wd_mult = dict(args_wd_mult)
+
+
+class SGD(Optimizer):
+    """SGD, with momentum when ``momentum`` is non-zero (reference
+    ``sgd_update``/``sgd_mom_update``). One state, the momentum, or none
+    (``parallel/step.py:131-150``)."""
+
+    def __init__(self, momentum=0.0, learning_rate=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum = momentum
+
+    def num_states(self) -> int:
+        return 1 if self.momentum else 0
+
+    def update(self, weight, grad, states, lr, wd, t):
+        """One update: ``(new_weight, new_states)`` in ``weight``'s dtype;
+        ``t`` is unused."""
+        clip = -1.0 if self.clip_gradient is None else self.clip_gradient
+        if self.momentum:
+            w, m = _ops.sgd_mom_update(
+                weight, grad, states[0], lr=lr, momentum=self.momentum,
+                wd=wd, rescale_grad=self.rescale_grad, clip_gradient=clip)
+            return w, (m,)
+        return _ops.sgd_update(weight, grad, lr=lr, wd=wd,
+                               rescale_grad=self.rescale_grad,
+                               clip_gradient=clip), ()
 
 
 class AdamW(Optimizer):

@@ -19,11 +19,21 @@ max|ref|) for float32 operands, 3e-2 * max(1, max|ref|) for bfloat16
 max|ref| comes from outlier rows (a one-key row gathers every query's
 gradient) and the first bound alone would pass a kernel wrong on most
 rows.
+
+The BatchNorm reductions (B7 statistics, B8 backward sums) are held the
+same way against their plain versions on CPU float32 copies of the same
+inputs (bf16 inputs widen exactly, so float32 bounds apply to both
+dtypes: the sums differ in order only), the mean within 1e-5 * max(1,
+max|x|) since it is a sample plus a shifted sum and near-zero means carry
+the sample's rounding; the cancellation input (mean
+1000, std 0.5) is also held against the float64 variance within 1e-4
+relative, the bound the JAX package's kernel meets.
 """
 
 import pytest
 import torch
 
+from mxnet_tpu_torch.ops.kernels import batch_norm as k_bn
 from mxnet_tpu_torch.ops.kernels import flash_attention as k_fa
 from mxnet_tpu_torch.ops.kernels import layer_norm as k_ln
 from mxnet_tpu_torch.ops.kernels import paged_attention as k_pa
@@ -198,3 +208,89 @@ def test_flash_attention_bwd_kernels(B, H, S, vl, causal, dtype):
     want_dq = k_fa.flash_attention_bwd_dq_plain(*args, causal)
     for o, w in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
         _close_to_cpu(o, w, dtype)
+
+
+# (M, C) of ResNet-50's BatchNorms at B=64, 224x224 (53 a step)
+BN_PATH_SHAPES = [(802816, 64), (200704, 64), (200704, 256), (50176, 128),
+                  (50176, 512), (12544, 256), (12544, 1024), (3136, 512),
+                  (3136, 2048)]
+
+
+def _bn_inputs(M, C, dtype, seed, mean=0.0, std=1.0, offset=0):
+    """x, dy (M, C) on the card; ``offset`` starts x one element into its
+    storage, so that it is not 16-byte aligned."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    base = (torch.randn(M * C + offset, generator=g) * std + mean)
+    x = base[offset:].reshape(M, C).to("cuda", dtype)
+    if offset:
+        flat = torch.empty(M * C + offset, dtype=dtype, device="cuda")
+        flat[offset:] = x.reshape(-1)
+        x = flat[offset:].view(M, C)
+    dy = torch.randn(M, C, generator=g).to("cuda", dtype)
+    return x, dy
+
+
+def _check_bn_kernels(x, dy):
+    before = (k_bn.launches_stats, k_bn.launches_bwd)
+    mean, var = k_bn.bn_stats(x)
+    inv = torch.rsqrt(var + 1e-5)
+    sd, sdx = k_bn.bn_bwd_reduce(x, dy, mean, inv)
+    torch.cuda.synchronize()
+    assert (k_bn.launches_stats, k_bn.launches_bwd) == \
+        (before[0] + 1, before[1] + 1)
+    want_m, want_v = k_bn.bn_stats_plain(*_cpu32(x))
+    want_sd, want_sdx = k_bn.bn_bwd_reduce_plain(*_cpu32(x, dy, mean, inv))
+    # the mean is s + S1 / M with s one sample: its error scales with the
+    # data (an ulp of max|x|), not with the mean, which can be near 0
+    assert mean.dtype == torch.float32 and mean.shape == want_m.shape
+    err = float((mean.cpu() - want_m).abs().max())
+    assert err <= 1e-5 * max(1.0, float(x.abs().max())), err
+    for o, w in ((var, want_v), (sd, want_sd), (sdx, want_sdx)):
+        assert o.dtype == torch.float32 and o.shape == w.shape
+        _close_to_cpu(o, w, torch.float32)
+    again = k_bn.bn_stats(x) + k_bn.bn_bwd_reduce(x, dy, mean, inv)
+    assert all(torch.equal(a, b) for a, b in zip(again,
+                                                 (mean, var, sd, sdx)))
+    return var
+
+
+@pytest.mark.parametrize("M,C", BN_PATH_SHAPES)
+def test_bn_kernels_at_the_path_shapes(M, C):
+    """B7 and B8 in bf16 at every shape of the ResNet-50 step: within
+    tolerance of the plain versions, and the same bits on a second
+    call (fixed-order partials, no atomics)."""
+    _card()
+    _check_bn_kernels(*_bn_inputs(M, C, torch.bfloat16, M + C, mean=0.5))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,C,offset", [(100003, 320, 0), (4099, 7, 0),
+                                        (1, 8, 0), (2, 2048, 0),
+                                        (5000, 64, 1)])
+def test_bn_kernels_ragged_and_unaligned(M, C, offset, dtype):
+    """An M that no chunk length divides, C off the 16-byte vector, one
+    row, and an operand that starts off a 16-byte boundary (the scalar
+    load path)."""
+    _card()
+    _check_bn_kernels(*_bn_inputs(M, C, dtype, M * 7 + C, offset=offset))
+
+
+def test_bn_stats_cancellation_input():
+    """mean 1000, std 0.5: the shifted sums keep the variance within
+    1e-4 relative of the float64 one."""
+    _card()
+    x, dy = _bn_inputs(50176, 64, torch.float32, 11, mean=1000.0, std=0.5)
+    var = _check_bn_kernels(x, dy)
+    ref = x.double().var(dim=0, unbiased=False).cpu()
+    torch.testing.assert_close(var.double().cpu(), ref, rtol=1e-4, atol=0)
+
+
+def test_bn_kernels_reject_what_they_do_not_take():
+    dev = _card()
+    x = torch.zeros(4, 8, device=dev, dtype=torch.float16)
+    with pytest.raises(Exception, match="float32 or bfloat16"):
+        k_bn.bn_stats(x)
+    with pytest.raises(Exception, match="contiguous"):
+        k_bn.bn_stats(torch.zeros(8, 4, device=dev).t())
+    with pytest.raises(Exception, match="non-empty"):
+        k_bn.bn_stats(torch.zeros(0, 4, device=dev))
