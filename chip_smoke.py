@@ -5,7 +5,9 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``mxnet_tpu_torch/csrc`` with
-``nvcc`` for ``sm_90a`` and drives both slices of the port.
+``nvcc`` for ``sm_90a`` and drives the port's four paths: serving,
+forced-prefix replay, the BERT training step and the ResNet-50 training
+step.
 
 Serving: checks each serving kernel against its plain PyTorch version at
 the serving path's shapes and times it (CUDA-graph replay timed with CUDA
@@ -16,6 +18,18 @@ memory); serves 16 requests of Transformer-base at full width (random
 weights from a seed) through ``ContinuousBatcher`` and checks that every
 serving kernel launched on that path; cross-checks two of the served
 requests against the same weights on the CPU.
+
+Forced prefix: checks the paged window kernel (B6) at the replay's
+shapes (windows of 1, 16 and 128 queries, offsets and padding) against
+its plain version on CPU copies and times it beside its plain version and
+``F.scaled_dot_product_attention`` over K/V gathered beforehand; replays
+four histories through ``InferStep.prefill_suffix_paged`` wide (B6) and
+sequential (K3) on copies of one state and compares their logits and
+written K/V, and the wide replay with a CPU copy of the model; serves 12
+requests with forced histories (``submit(prefix_ids=...)``, up to 128
+tokens) through a ``ContinuousBatcher`` with ``suffix_wide=True`` and
+through one without, checks B6's launches against the replay dispatches
+and the transcripts against each other wherever the logits decide them.
 
 Training: checks the backward kernels (LayerNorm backward; the dK/dV and
 dQ kernels of the flash-attention backward), and the forward kernels
@@ -93,6 +107,22 @@ RESNET_LOSS_CAP = 1.5
 BN_PATH_SHAPES = [(802816, 64, 1), (200704, 64, 6), (200704, 256, 4),
                   (50176, 128, 8), (50176, 512, 5), (12544, 256, 12),
                   (12544, 1024, 7), (3136, 512, 6), (3136, 2048, 4)]
+# the forced-prefix replay of the port's fourth slice: slice 1's model
+# and batcher with a 128-token history budget (suffix menu 1, 2, ..., 128;
+# pages_for(1 + 128 + 32, 16) = 11 pages a slot), replayed in one window
+# pass through kernel B6 (suffix_wide) and, for comparison, position by
+# position on K3
+PREFIX_MAX, PREFIX_MAX_NEW = 128, 32
+PREFIX_PAGES = math.ceil((1 + PREFIX_MAX + PREFIX_MAX_NEW) / PAGE_SIZE)
+# 12 requests: histories crossing page and menu edges, one without
+PREFIX_LENS = [1, 2, 15, 16, 17, 63, 64, 65, 100, 127, 128, 0]
+ENGINE_PREFIX_LENS = [1, 17, 64, 128]
+# B6 against its plain version on CPU f32 copies: max-abs and relative L2
+WINDOW_TOL = 1e-5
+# the wide replay against the sequential one (last logits; the written
+# K/V), and against a CPU copy of the model (last logits)
+PREFIX_LOGIT_TOL = 1e-3
+PREFIX_KV_TOL = 1e-4
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, float32
 # operations/s outside the tensor cores, and the dense bf16 tensor-core
 # rate. The kernels compute bf16 inputs in f32; a bound states the least
@@ -348,16 +378,127 @@ def check_paged_attention(dev, gen):
         + slots * (P + 1) * 4
     bnd, by = bound_ms(nbytes, 4 * H * D * keys)
     sets = cold_copies((q, kp, vp, table, pos, D ** -0.5), nbytes)
+    q_abs = pos.view(slots, 1, 1)  # the one query's position
+    lib_sets = cold_copies(gathered_sdpa_args(q[:, None], kp, vp, table,
+                                              q_abs), nbytes)
     res = dict(ms=time_ms(K.paged_decode_attention, sets),
                plain_ms=time_ms(K.paged_decode_plain, sets),
-               library_ms=None, bound_ms=bnd, bound_by=by)
+               library_ms=time_ms(sdpa, lib_sets), bound_ms=bnd,
+               bound_by=by)
     print(f"timing paged_decode_attention slots={slots} H={H} D={D} "
-          f"page_size={PAGE_SIZE} P={P} f32 pos={pos_list}: "
-          f"{json.dumps(res)}")
+          f"page_size={PAGE_SIZE} P={P} f32 pos={pos_list} (library: "
+          f"F.scaled_dot_product_attention over K/V gathered beforehand, "
+          f"bool mask; the gather not timed): {json.dumps(res)}")
     return dict(name="paged_decode_attention", route="cuda",
                 source="mxnet_tpu_torch/csrc/paged_attention.cu",
                 replaces="mxnet_tpu/ops/pallas/paged_flash_attention.py:89",
                 max_abs_err=err, **res)
+
+
+def gathered_sdpa_args(q, kp, vp, table, q_abs):
+    """Operands of the library yardstick of the paged kernels: q (B, S,
+    H, D) as (B, H, S, D), the (B, H, P*page_size, D) K/V views gathered
+    through the table, and the boolean mask of the keys at positions <=
+    each query's ``q_abs`` (B, S, 1)."""
+    B, S, H, D = q.shape
+    L = table.shape[1] * kp.shape[1]
+    idx = table.long()
+    kg, vg = (p[idx].reshape(B, L, H, D).transpose(1, 2).contiguous()
+              for p in (kp, vp))
+    keys = torch.arange(L, device=q.device).view(1, 1, L)
+    mask = (keys <= q_abs).view(B, 1, S, L)
+    return q.transpose(1, 2).contiguous(), kg, vg, mask
+
+
+def sdpa(q, k, v, mask):
+    return torch.nn.functional.scaled_dot_product_attention(q, k, v,
+                                                            attn_mask=mask)
+
+
+def check_paged_window(dev, gen):
+    """B6 at the forced-prefix replay's shapes (8 rows, H=8, D=64,
+    page_size 16, P=11) for windows of 1, 16 and 128 queries, offsets 0,
+    1 and mid-page, padding queries and an all-trash padding row, against
+    its plain version on CPU f32 copies: max-abs and relative L2 within
+    ``WINDOW_TOL``, padding queries exactly 0, one launch per call, the
+    same bits on a second call. Timed at S=16 and S=128 beside its plain
+    version and ``F.scaled_dot_product_attention`` over K/V gathered
+    beforehand (the gather not timed)."""
+    from mxnet_tpu_torch.ops.kernels import paged_attention as K
+
+    # one row per slot: offsets 0, 1 (after the BOS prime) and mid-page;
+    # row 6 is a padding row of the replay call (all-trash table, offset 0)
+    off_list = [1, 1, 0, 9, 1, 40, 0, 1]
+    B, H, D, P = len(off_list), 8, 64, PREFIX_PAGES
+    L = P * PAGE_SIZE
+    scale = D ** -0.5
+    table = (1 + torch.arange(B * P, dtype=torch.int32)).reshape(B, P)
+    table[6] = 0
+    kp, vp = (torch.randn(1 + B * P, PAGE_SIZE, H, D,
+                          generator=gen).to(dev) for _ in range(2))
+    table = table.to(dev)
+    errs, timings = [], {}
+    for S in (1, 16, 128):
+        vl_list = [S, max(S - 3, 0), S, max(S // 2, 1), 1, S, 1,
+                   max(S - 1, 0)]
+        off = torch.tensor(off_list, dtype=torch.int32, device=dev)
+        vl = torch.tensor(vl_list, dtype=torch.int32, device=dev)
+        q = torch.randn(B, S, H, D, generator=gen).to(dev)
+        n0 = K.launches_window
+        out = K.paged_window_attention(q, kp, vp, table, off, vl, scale)
+        torch.cuda.synchronize()
+        launched = K.launches_window - n0
+        want = K.paged_window_plain(*cpu_f32(q, kp, vp, table, off, vl),
+                                    scale)
+        diff = (out.cpu() - want).abs()
+        err = float(diff.max())
+        rel = float(diff.double().norm() / want.double().norm())
+        pad_zero = all(bool((out[b, n:] == 0).all())
+                       for b, n in enumerate(vl_list))
+        again = K.paged_window_attention(q, kp, vp, table, off, vl, scale)
+        same = torch.equal(again, out)
+        ok = bool(torch.isfinite(out).all()) and err <= WINDOW_TOL \
+            and rel <= WINDOW_TOL and launched == 1 and pad_zero and same
+        print(f"check paged_window_attention B={B} S={S} H={H} offsets "
+              f"{off_list} window_vl {vl_list}: max_abs_err={err:.3e} "
+              f"rel_l2={rel:.3e} tol={WINDOW_TOL:.0e} padding zero "
+              f"{pad_zero} same bits {same} launches {launched} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("paged_window_attention disagrees with its plain version "
+                 "on the CPU, or did not launch once")
+        errs.append(err)
+        if S == 1:
+            continue
+        # this run's data: row b's live queries see keys up to their own
+        # position; each input read once (q of live queries, the keys up
+        # to the last live query), the output written once
+        keys = [min(L, o + n) if n else 0 for o, n in zip(off_list, vl_list)]
+        pairs = sum(min(L, o + i + 1) for o, n in zip(off_list, vl_list)
+                    for i in range(n))
+        live_q = sum(vl_list)
+        nbytes = (live_q * H * D + 2 * sum(keys) * H * D + B * S * H * D
+                  + B * (P + 2)) * 4
+        bnd, by = bound_ms(nbytes, 4 * D * H * pairs)
+        sets = cold_copies((q, kp, vp, table, off, vl, scale), nbytes)
+        q_abs = (off.view(B, 1) + torch.arange(S, device=dev)).view(
+            B, S, 1)
+        lib_sets = cold_copies(gathered_sdpa_args(q, kp, vp, table, q_abs),
+                               nbytes)
+        timings[S] = dict(
+            ms=time_ms(K.paged_window_attention, sets),
+            plain_ms=time_ms(K.paged_window_plain, sets),
+            library_ms=time_ms(sdpa, lib_sets), bound_ms=bnd, bound_by=by)
+        print(f"timing paged_window_attention B={B} S={S} H={H} D={D} "
+              f"page_size={PAGE_SIZE} P={P} f32 offsets {off_list} "
+              f"window_vl {vl_list} (library: F.scaled_dot_product_attention"
+              f" over K/V gathered beforehand, bool mask; the gather not "
+              f"timed): {json.dumps(timings[S])}")
+    s16 = {f"s16_{k}": v for k, v in timings[16].items()}
+    return dict(name="paged_window_attention", route="cuda",
+                source="mxnet_tpu_torch/csrc/paged_window_attention.cu",
+                replaces="mxnet_tpu/ops/pallas/paged_flash_attention.py:181",
+                max_abs_err=max(errs), **timings[128], **s16)
 
 
 def check_layer_norm_bwd(dev, gen):
@@ -697,6 +838,7 @@ def counters():
     return {"layer_norm_fwd": (k_ln, "launches"),
             "flash_attention_fwd": (k_fa, "launches"),
             "paged_decode_attention": (k_pa, "launches"),
+            "paged_window_attention": (k_pa, "launches_window"),
             "layer_norm_bwd": (k_ln, "launches_bwd"),
             "flash_attention_bwd_dkdv": (k_fa, "launches_bwd_dkdv"),
             "flash_attention_bwd_dq": (k_fa, "launches_bwd_dq"),
@@ -762,17 +904,33 @@ def make_requests():
     return prompts, max_new
 
 
-def serve(net, prompts, max_new):
+def serve(net, prompts, max_new, prefixes=None, **batcher_kwargs):
+    """The requests (with forced histories ``prefixes``, if given) at
+    once through one ``ContinuousBatcher``; fails unless every page
+    returns. Returns the transcripts, the wall time, each request's TTFT
+    (ms), the batcher, and the shapes of the engine's replay dispatches
+    (a counting wrapper around ``prefill_suffix_paged``)."""
     from mxnet_tpu_torch.parallel import InferStep
     from mxnet_tpu_torch.serving import ContinuousBatcher
 
     eng = InferStep(net)
-    bat = ContinuousBatcher(eng, BUCKETS, slots=SLOTS, page_size=PAGE_SIZE,
-                            max_new_tokens=MAX_NEW, iter_tokens=ITER_TOKENS)
+    dispatches = []
+    replay = eng.prefill_suffix_paged
+
+    def counted(*args, **kwargs):
+        dispatches.append(np.asarray(args[1]).shape)
+        return replay(*args, **kwargs)
+
+    eng.prefill_suffix_paged = counted
+    kw = dict(slots=SLOTS, page_size=PAGE_SIZE, max_new_tokens=MAX_NEW,
+              iter_tokens=ITER_TOKENS)
+    kw.update(batcher_kwargs)
+    bat = ContinuousBatcher(eng, BUCKETS, **kw)
+    prefixes = prefixes or [None] * len(prompts)
     try:
         t0 = time.perf_counter()
-        futs = [bat.submit(p, max_new_tokens=m)
-                for p, m in zip(prompts, max_new)]
+        futs = [bat.submit(p, max_new_tokens=m, prefix_ids=h)
+                for p, m, h in zip(prompts, max_new, prefixes)]
         outs = [f.result(timeout=600) for f in futs]
         wall = time.perf_counter() - t0
     finally:
@@ -781,8 +939,8 @@ def serve(net, prompts, max_new):
         fail(f"pages leaked: {bat.pool.free_pages} of "
              f"{bat.pool.num_pages} free after the drain")
     bat.pool.check_invariants(set())
-    ttft = sorted((f.first_token_at - f.enqueued_at) * 1e3 for f in futs)
-    return outs, wall, ttft, bat.stats
+    ttft = [(f.first_token_at - f.enqueued_at) * 1e3 for f in futs]
+    return outs, wall, ttft, bat, dispatches
 
 
 def teacher_forced_logits(net, prompt, tokens, device):
@@ -808,6 +966,192 @@ def teacher_forced_logits(net, prompt, tokens, device):
                 state, table, one)
             steps.append(lg[0].float().cpu())
     return torch.stack(steps)
+
+
+# ------------------------------------------------------- forced prefix
+def copy_state(state):
+    return {k: v.clone() if torch.is_tensor(v) else [t.clone() for t in v]
+            for k, v in state.items()}
+
+
+def prefix_engine_check(net, cpu_net, dev):
+    """After one BOS ``prefill_paged`` of 4 rows, their histories of 1,
+    17, 64 and 128 tokens replayed at width 128 on copies of the same
+    state: wide (B6) against sequential (K3) by last logits and by the
+    K/V written at every history position of every layer, both engines'
+    first tokens against the argmax of those logits, and the wide replay
+    against the same calls on the CPU copy of the model (full depth,
+    6+6 layers). Returns the printed errors."""
+    from mxnet_tpu_torch.parallel import InferStep
+
+    rng = np.random.RandomState(SEED + 3)
+    B, P, mem = len(ENGINE_PREFIX_LENS), PREFIX_PAGES, BUCKETS[0]
+    src = np.zeros((B, mem), np.int32)
+    vl = rng.randint(16, mem + 1, size=B).astype(np.int32)
+    for r, n in enumerate(vl):
+        src[r, :n] = rng.randint(3, VOCAB, size=n)
+    toks = np.zeros((B, PREFIX_MAX), np.int32)
+    for r, n in enumerate(ENGINE_PREFIX_LENS):
+        toks[r, :n] = rng.randint(3, VOCAB, size=n)
+    tvl = np.array(ENGINE_PREFIX_LENS, np.int32)
+    tables = (1 + np.arange(B * P, dtype=np.int32)).reshape(B, P)
+    rows = np.arange(B, dtype=np.int32)
+    ones = np.ones((B,), bool)
+
+    def replay(model, device, wide):
+        """Logits and state of the model-level replay, and the engine's
+        first tokens from a second copy of the primed state."""
+        eng = InferStep(model, device=device)
+        state = eng.init_paged_state(B, B * P, PAGE_SIZE, mem)
+        _, state = eng.prefill_paged(state, src, vl, rows, tables[:, 0],
+                                     ones)
+        args = [torch.as_tensor(a, device=device) for a in
+                (toks, tvl, np.ones((B,), np.int32))]
+        tok, _ = eng.prefill_suffix_paged(copy_state(state), toks, tvl,
+                                          np.ones((B,), np.int32), tables,
+                                          rows, ones, wide=wide)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            logits, state = model.prefill_suffix_paged(
+                *args, state, torch.as_tensor(tables, device=device),
+                torch.as_tensor(rows, device=device).long(),
+                torch.as_tensor(ones, device=device), wide=wide)
+        logits = logits.float().cpu()
+        secs = time.perf_counter() - t0
+        return logits, tok.cpu(), state, secs
+
+    lw, tw, sw, _ = replay(net, dev, True)
+    ls, ts, ss, _ = replay(net, dev, False)
+    lc, tc, _, cpu_s = replay(cpu_net, torch.device("cpu"), True)
+    err_seq = float((lw - ls).abs().max())
+    err_cpu = float((lw - lc).abs().max())
+    kv_err = 0.0
+    for r, n in enumerate(ENGINE_PREFIX_LENS):
+        pos = torch.arange(1, 1 + n)
+        page = torch.as_tensor(tables[r])[pos // PAGE_SIZE].long()
+        for name in ("k_pools", "v_pools"):
+            for a, b in zip(sw[name], ss[name]):
+                kv_err = max(kv_err, float(
+                    (a[page, pos % PAGE_SIZE] - b[page, pos % PAGE_SIZE])
+                    .abs().max()))
+    top2 = ls.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    decided = margin > PREFIX_LOGIT_TOL
+    tok_ok = torch.equal(tw, lw.argmax(-1).int()) \
+        and torch.equal(ts, ls.argmax(-1).int()) \
+        and torch.equal(tc, lc.argmax(-1).int()) \
+        and torch.equal(tw[decided], ts[decided])
+    ok = err_seq <= PREFIX_LOGIT_TOL and kv_err <= PREFIX_KV_TOL \
+        and err_cpu <= PREFIX_LOGIT_TOL and tok_ok \
+        and bool(torch.isfinite(lw).all())
+    print(f"prefix engine check (histories {ENGINE_PREFIX_LENS} at width "
+          f"{PREFIX_MAX}, prompts {vl.tolist()}): wide vs sequential last "
+          f"logits max_abs_err={err_seq:.3e} tol={PREFIX_LOGIT_TOL:.0e}, "
+          f"written K/V max_abs_err={kv_err:.3e} tol={PREFIX_KV_TOL:.0e}; "
+          f"card vs CPU copy (6+6 layers, {cpu_s:.2f} s there) wide "
+          f"logits max_abs_err={err_cpu:.3e} tol={PREFIX_LOGIT_TOL:.0e}; "
+          f"first tokens wide {tw.tolist()} sequential {ts.tolist()} cpu "
+          f"{tc.tolist()} (top-2 margins {[round(float(m), 4) for m in margin]}"
+          f") {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the wide replay disagrees with the sequential one or with "
+             "the CPU")
+    return dict(wide_vs_sequential=err_seq, kv=kv_err, card_vs_cpu=err_cpu)
+
+
+def make_prefix_requests():
+    """12 requests, seeded: prompts of 16-512 tokens (so that 512-bucket
+    admissions run K2), forced histories of ``PREFIX_LENS`` tokens (one
+    request without), asked lengths 8-32."""
+    rng = np.random.RandomState(SEED)
+    n = len(PREFIX_LENS)
+    lens = rng.randint(16, 513, size=n)
+    asked = [int(m) for m in rng.randint(8, PREFIX_MAX_NEW + 1, size=n)]
+    prompts = [rng.randint(3, VOCAB, size=int(k)).astype(np.int32)
+               for k in lens]
+    prefixes = [rng.randint(3, VOCAB, size=k).astype(np.int32) if k else
+                None for k in PREFIX_LENS]
+    return prompts, prefixes, asked
+
+
+def prefix_phase(net, cpu_net, dev, kernel_entry, tag):
+    """The forced-prefix path: the engine check, then the 12 requests
+    through the wide batcher (B6) and the sequential one (K3): exact B6
+    launch counts, pages, lengths, and equal transcripts wherever the
+    sequential logits' top-2 margin is above ``PREFIX_LOGIT_TOL``.
+    Returns the wide run's launch counts."""
+    errs = prefix_engine_check(net, cpu_net, dev)
+    prompts, prefixes, asked = make_prefix_requests()
+    kw = dict(max_new_tokens=PREFIX_MAX_NEW, max_prefix_tokens=PREFIX_MAX)
+    serve(net, prompts[:1], [4], prefixes[-2:-1], suffix_wide=True, **kw)
+    runs = {}
+    for wide in (True, False):
+        reset_counts()
+        outs, wall, ttft, bat, disp = serve(net, prompts, asked, prefixes,
+                                            suffix_wide=wide, **kw)
+        runs[wide] = (outs, wall, sorted(t for t, h in zip(ttft, prefixes)
+                                         if h is not None), disp,
+                      read_counts())
+    menu = [1 << i for i in range((PREFIX_MAX - 1).bit_length())]
+    if bat.pages_per_slot != PREFIX_PAGES or \
+            bat._suffix_menu != menu + [PREFIX_MAX]:
+        fail(f"prefix batcher geometry: {bat.pages_per_slot} pages a slot, "
+             f"menu {bat._suffix_menu}")
+    n_dec = net.decoder._n
+    outs, wall, ttft, disp, counts = runs[True]
+    seq_outs, seq_wall, seq_ttft, seq_disp, seq_counts = runs[False]
+    n_b6 = counts["paged_window_attention"]
+    if n_b6 != n_dec * len(disp) or not disp \
+            or seq_counts["paged_window_attention"] != 0 or not seq_disp \
+            or min(counts[k] for k in ("layer_norm_fwd", "flash_attention_fwd",
+                                       "paged_decode_attention")) < 1:
+        fail(f"prefix launches: B6 {n_b6} for {len(disp)} wide replay "
+             f"dispatches of {n_dec} decoder layers; sequential run "
+             f"{seq_counts}; wide run {counts}")
+    for r, (toks, m) in enumerate(zip(outs + seq_outs, asked + asked)):
+        ok_len = len(toks) == m or (toks and toks[-1] == 2
+                                    and len(toks) <= m)
+        if not ok_len or min(toks) < 0 or max(toks) >= VOCAB:
+            fail(f"prefix request {r % len(asked)}: bad transcript "
+                 f"{toks[:8]}... (len {len(toks)}, asked {m})")
+    differ = []
+    for r, (a, b) in enumerate(zip(outs, seq_outs)):
+        if a == b:
+            continue
+        k = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        hist = list(prefixes[r] if prefixes[r] is not None else []) + b[:k]
+        # the logits after the sequential replay of hist (its last
+        # token, a placeholder, is not fed)
+        lg = teacher_forced_logits(net, prompts[r], hist + [0], dev)[-1]
+        top2 = lg.topk(2).values
+        margin = float(top2[0] - top2[1])
+        print(f"prefix request {r}: wide and sequential transcripts first "
+              f"differ at token {k} ({a[k:k + 1]} vs {b[k:k + 1]}); "
+              f"sequential top-2 "
+              f"margin there {margin:.3e} (tol {PREFIX_LOGIT_TOL:.0e})")
+        differ.append(r)
+        if margin >= PREFIX_LOGIT_TOL:
+            fail(f"prefix request {r}: the wide replay changed a token "
+                 "the sequential logits decide")
+    n_tok = sum(len(t) for t in outs)
+    seq_tok = sum(len(t) for t in seq_outs)
+    print(f"prefix [{tag}]: {len(outs)} requests (histories {PREFIX_LENS}, "
+          f"asked {asked}), wide replay: {n_tok} tokens in {wall:.3f} s = "
+          f"{n_tok / wall:.1f} tokens/s, TTFT of the prefixed requests p50 "
+          f"{ttft[len(ttft) // 2]:.1f} ms max {ttft[-1]:.1f} ms, "
+          f"{len(disp)} replay dispatches (shapes {disp}), B6 launches "
+          f"{n_b6}, launches {json.dumps(counts)}; sequential replay: "
+          f"{seq_tok} tokens in {seq_wall:.3f} s = {seq_tok / seq_wall:.1f} "
+          f"tokens/s, TTFT p50 {seq_ttft[len(seq_ttft) // 2]:.1f} ms max "
+          f"{seq_ttft[-1]:.1f} ms, {len(seq_disp)} dispatches, launches "
+          f"{json.dumps(seq_counts)}; transcripts equal in "
+          f"{len(outs) - len(differ)} of {len(outs)}; B6 S=16 "
+          f"{kernel_entry['s16_ms']:.5f} ms (bound "
+          f"{kernel_entry['s16_bound_ms']:.5f}), S=128 "
+          f"{kernel_entry['ms']:.5f} ms (bound "
+          f"{kernel_entry['bound_ms']:.5f}); engine check {json.dumps(errs)}")
+    return counts
 
 
 # -------------------------------------------------------------- training
@@ -949,7 +1293,7 @@ def train(dev, tag):
             "flash_attention_fwd": n_attn,
             "flash_attention_bwd_dkdv": n_attn,
             "flash_attention_bwd_dq": n_attn, "paged_decode_attention": 0,
-            "bn_stats": 0, "bn_bwd_reduce": 0}
+            "paged_window_attention": 0, "bn_stats": 0, "bn_bwd_reduce": 0}
     want = {k: n * TRAIN_STEPS for k, n in want.items()}
     tokens = TRAIN_B * TRAIN_S
     ms = sorted(t * 1e3 for t in times)
@@ -1214,8 +1558,9 @@ def main():
     prompts, max_new = make_requests()
     serve(net, prompts[:1], [4])  # warm-up: cuBLAS handles, allocator
     reset_counts()
-    outs, wall, ttft, stats = serve(net, prompts, max_new)
+    outs, wall, ttft, bat, _ = serve(net, prompts, max_new)
     served = read_counts()
+    ttft, stats = sorted(ttft), bat.stats
     if min(served[k] for k in ("layer_norm_fwd", "flash_attention_fwd",
                                "paged_decode_attention")) < 1:
         fail(f"a kernel of the serving path never launched: {served}")
@@ -1262,6 +1607,11 @@ def main():
               f"{bool((cpu_lg.argmax(-1) == served_toks).all())}")
         if err > XCHECK_TOL or wrong:
             fail(f"request {r} disagrees with the CPU run")
+
+    # ------------------------------------------------ forced-prefix phase
+    window = check_paged_window(dev, gen)
+    kernels.append(window)
+    prefixed = prefix_phase(net, cpu_net, dev, window, f"{kind}, {smi}")
     del net, cpu_net
 
     # ------------------------------------------------------ training phase
@@ -1284,8 +1634,8 @@ def main():
 
     for entry in kernels:
         name = entry["name"]
-        paths = {"serve": served[name], "train": trained[name],
-                 "resnet": resnet_counts[name]}
+        paths = {"serve": served[name], "prefix": prefixed[name],
+                 "train": trained[name], "resnet": resnet_counts[name]}
         entry["launches"] = sum(paths.values())
         entry["launches_by_path"] = paths
     print(json.dumps({"kernels": kernels}))

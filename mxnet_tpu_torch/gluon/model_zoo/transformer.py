@@ -3,7 +3,9 @@
 Counterpart of ``mxnet_tpu/gluon/model_zoo/transformer.py``: the pre-LN
 encoder and decoder layers, ``TransformerModel`` with tied logits and its
 paged decode protocol (``init_paged_state`` / ``prefill_paged`` /
-``decode_step_paged``), and ``transformer_base``. Parameter names match
+``decode_step_paged``, and the forced-prefix replay
+``prefill_suffix_paged`` over ``decode_window_paged``), and
+``transformer_base``. Parameter names match
 the JAX package's structural names (``encoder.layers.0.ln1.gamma``,
 ``decoder.layer0.self_attn.qkv_proj.weight``, ...), so
 ``mxnet_tpu_torch.convert`` loads its saved parameters one to one.
@@ -100,6 +102,21 @@ class TransformerDecoderLayer(nn.Module):
         y = x + self.ffn(self.ln3(x))
         return y, k_pool, v_pool
 
+    def step_window_paged(self, x, k_pool, v_pool, page_table, pos, active,
+                          cross_kv, mem_valid_length=None, window_vl=None):
+        """``step_paged`` widened to an S-token window at per-row
+        positions ``pos[b] + i``, all in one pass (``:138``);
+        ``window_vl`` marks each row's padding tail."""
+        a, k_pool, v_pool = self.self_attn.paged_window_step(
+            self.ln1(x), k_pool, v_pool, page_table, pos, active,
+            window_vl=window_vl)
+        x = x + self.drop(a)
+        c = self.cross_attn.attend(self.ln2(x), cross_kv[0], cross_kv[1],
+                                   valid_length=mem_valid_length)
+        x = x + self.drop(c)
+        y = x + self.ffn(self.ln3(x))
+        return y, k_pool, v_pool
+
 
 class TransformerEncoder(nn.Module):
     def __init__(self, num_layers, units, hidden_size, num_heads, dropout,
@@ -183,6 +200,14 @@ class TransformerModel(nn.Module):
         pos_ids = torch.as_tensor(pos, device=tokens.device).reshape(
             -1, 1).expand(B, 1)
         return self.drop(self.tgt_embed(ids) * (self._units ** 0.5)
+                         + self.pos_embed(pos_ids))
+
+    def _embed_window(self, tokens, pos):
+        """Target embedding of an S-token window: row ``r``'s token ``j``
+        at position ``pos[r] + j`` (``:548-550``)."""
+        S = tokens.shape[1]
+        pos_ids = pos.long()[:, None] + torch.arange(S, device=tokens.device)
+        return self.drop(self.tgt_embed(tokens) * (self._units ** 0.5)
                          + self.pos_embed(pos_ids))
 
     def _logits(self, out):
@@ -281,6 +306,64 @@ class TransformerModel(nn.Module):
                 mem_valid_length=state["mem_vl"])
         out = self.decoder.ln(x)
         return self._logits(out)[:, 0], state
+
+    def decode_window_paged(self, tokens, pos, state, page_tables, active,
+                            window_vl=None):
+        """An S-token window through the paged cache in one forward
+        (``:526-563``): ``tokens`` (rows, S) at per-row positions ``pos[r]
+        + j`` (``pos`` (rows,) int32); ``window_vl`` (rows,) int32 marks
+        tokens ``>= window_vl[r]`` as padding (their K/V go to the trash
+        page, their logits are garbage). Returns ``(logits (rows, S,
+        vocab), state)``; column ``j`` predicts position ``pos[r] + j +
+        1``, as ``decode_step_paged`` run position by position does up to
+        float rounding."""
+        x = self._embed_window(tokens, pos)
+        for i in range(self.decoder._n):
+            x, _, _ = self.decoder.layer(i).step_window_paged(
+                x, state["k_pools"][i], state["v_pools"][i], page_tables,
+                pos, active, (state["cross_k"][i], state["cross_v"][i]),
+                mem_valid_length=state["mem_vl"], window_vl=window_vl)
+        return self._logits(self.decoder.ln(x)), state
+
+    def prefill_suffix_paged(self, tokens, token_vl, q_offset, state,
+                             page_tables, slot_ids, active, wide=False):
+        """Replay a forced target history into the rows' pages
+        (``:442-524``): ``tokens`` (rows, S) left-aligned, ``token_vl``
+        (rows,) of them real, at absolute positions ``q_offset[r] + j``,
+        read and written through ``page_tables`` (rows, P). The slots'
+        cross memory and ``mem_vl`` must already be in ``state`` (a prior
+        ``prefill_paged``); no encoder runs. Padding rows carry the
+        out-of-range slot id ``slots``: the JAX gather clamps it, torch
+        indexing would raise, so the index is clamped here, and an empty
+        slot's ``mem_vl`` of 0 is raised to 1 so that its masked softmax
+        stays finite; their outputs are discarded.
+
+        The sequential form runs one ``decode_step_paged`` per position
+        with ``live = active & (j < token_vl)``, the bit-exact stream;
+        ``wide=True`` runs one ``decode_window_paged`` pass (kernel B6 on
+        the card), the same math rounded in another order. Returns
+        ``(logits (rows, vocab) at position token_vl - 1, state)``."""
+        slots = state["cross_k"][0].shape[0]
+        sid = slot_ids.long().clamp(0, slots - 1)
+        sub = {"k_pools": state["k_pools"], "v_pools": state["v_pools"],
+               "cross_k": [c[sid] for c in state["cross_k"]],
+               "cross_v": [c[sid] for c in state["cross_v"]],
+               "mem_vl": state["mem_vl"][sid].clamp(min=1)}
+        B, S = tokens.shape
+        if wide:
+            logits, _ = self.decode_window_paged(
+                tokens, q_offset, sub, page_tables, active,
+                window_vl=token_vl)
+            idx = (token_vl.long() - 1).clamp(0, S - 1)
+            return logits[torch.arange(B, device=logits.device), idx], state
+        last = None
+        for j in range(S):
+            lg, _ = self.decode_step_paged(
+                tokens[:, j], q_offset + j, sub, page_tables,
+                active & (j < token_vl))
+            last = lg if last is None else \
+                torch.where((token_vl == j + 1)[:, None], lg, last)
+        return last, state
 
 
 def transformer_base(**kwargs):

@@ -3,16 +3,20 @@
 Counterpart of ``mxnet_tpu/gluon/nn/attention.py`` (``MultiHeadAttention``)
 in its default transpose-free (B, S, H, D) layout: ``forward``, the
 incremental ``prefill``/``project_kv``/``attend`` and the paged
-``init_page_pool``/``paged_step``. The fused QKV projection keeps the
-interleaved per-head layout of ``:95-106``: reshape to ``(B, S, H, 3D)``,
-then slice q, k and v, so the JAX package's weights load unchanged.
+``init_page_pool``/``paged_step``/``paged_window_step``. The fused QKV
+projection keeps the interleaved per-head layout of ``:95-106``: reshape
+to ``(B, S, H, 3D)``, then slice q, k and v, so the JAX package's weights
+load unchanged.
 
 Attention runs through ``ops.contrib.flash_attention`` (dense below
-``MXTPU_ATTN_DENSE_MAX``, kernel K2 above) and, for the paged decode step,
-``ops.kernels.paged_attention`` (kernel K3 for CUDA tensors, the plain
-gather path for CPU tensors). Paged pools are updated IN PLACE (the JAX
-package returns new arrays); the methods still return them so the call
-shapes match.
+``MXTPU_ATTN_DENSE_MAX``, kernel K2 above) and, for the paged steps of a
+causal layer, ``ops.kernels.paged_attention`` (kernels K3 and B6 for CUDA
+tensors, their plain gather versions for CPU tensors). A non-causal layer
+takes the paged steps' dense branch on every device, as the JAX package
+routes it (``:389-405``, ``:465-476``): gather the pages, then
+``flash_attention(causal=False, q_offset=pos)`` over every gathered key.
+Paged pools are updated IN PLACE (the JAX package returns new arrays);
+the methods still return them so the call shapes match.
 """
 
 from __future__ import annotations
@@ -24,7 +28,8 @@ from torch import nn
 
 from ...base import MXNetError
 from ...ops.contrib import flash_attention
-from ...ops.kernels.paged_attention import paged_decode_attention
+from ...ops.kernels.paged_attention import (paged_decode_attention,
+                                            paged_window_attention)
 from .basic_layers import Dense, Dropout
 
 __all__ = ["MultiHeadAttention"]
@@ -143,6 +148,18 @@ class MultiHeadAttention(nn.Module):
         return (torch.zeros(shape, dtype=dt, device=w.device),
                 torch.zeros(shape, dtype=dt, device=w.device))
 
+    def _paged_dense(self, q, k_pool, v_pool, page_table, pos):
+        """The non-causal layer's branch: gather the ``(B, P*page_size, H,
+        D)`` view through the table and attend over every gathered key
+        (``causal=False``; ``q_offset`` only shifts a causal mask)."""
+        B = q.shape[0]
+        rows = page_table.shape[1] * k_pool.shape[1]
+        table = page_table.long()
+        k = k_pool[table].reshape(B, rows, self._num_heads, self._head_dim)
+        v = v_pool[table].reshape(B, rows, self._num_heads, self._head_dim)
+        return flash_attention(q, k, v, None, causal=False,
+                               sm_scale=self._sm_scale(), q_offset=pos)
+
     def paged_step(self, query, k_pool, v_pool, page_table, pos, active):
         """One incremental self-attention step through the paged cache
         (``:343-407``). ``query`` (B, 1, units); ``page_table`` (B, P)
@@ -150,8 +167,9 @@ class MultiHeadAttention(nn.Module):
         position); ``active`` (B,) bool. The new token's K/V land at
         ``(page, pos % page_size)``, inactive rows at (trash page 0, 0) --
         duplicate indices there are harmless because nothing reads page 0
-        for a live row. Then K3 (CUDA) or the plain gather path (CPU)
-        attends over keys ``<= pos``. Returns ``(out, k_pool, v_pool)``."""
+        for a live row. Then a causal layer attends over keys ``<= pos``
+        through K3 (CUDA) or its plain gather version (CPU); a non-causal
+        one takes the dense branch. Returns ``(out, k_pool, v_pool)``."""
         if not self._self_attention:
             raise MXNetError("paged_step() updates a self-attention cache; "
                              "cross-attention uses attend()")
@@ -167,6 +185,51 @@ class MultiHeadAttention(nn.Module):
         off = torch.where(active, pos_l % page_size, 0)
         k_pool[page, off] = k_t[:, 0].to(k_pool.dtype)
         v_pool[page, off] = v_t[:, 0].to(v_pool.dtype)
-        out = paged_decode_attention(q[:, 0].contiguous(), k_pool, v_pool,
-                                     page_table, pos, self._sm_scale())
-        return self._finish(out[:, None]), k_pool, v_pool
+        if self._causal:
+            out = paged_decode_attention(q[:, 0].contiguous(), k_pool,
+                                         v_pool, page_table, pos,
+                                         self._sm_scale())[:, None]
+        else:
+            out = self._paged_dense(q, k_pool, v_pool, page_table, pos)
+        return self._finish(out), k_pool, v_pool
+
+    def paged_window_step(self, query, k_pool, v_pool, page_table, pos,
+                          active, window_vl=None):
+        """An S-token window through the paged cache in one pass
+        (``:409-476``). ``query`` (B, S, units): token ``i`` of row ``b``
+        sits at absolute position ``pos[b] + i`` (``pos`` (B,) int32).
+        The window's K/V scatter through the table first; a padding token
+        (``i >= window_vl[b]``, int32 (B,) or None for none) or an
+        inactive row writes to (trash page 0, 0), where duplicate indices
+        are harmless. Then a causal layer attends every query over the
+        row's history and the window's earlier tokens through B6 (CUDA)
+        or its plain version (CPU), padding queries giving 0; a non-causal
+        one takes the dense branch, whose padding rows are garbage (callers
+        read rows ``< window_vl`` only). Returns ``(out, k_pool,
+        v_pool)``."""
+        if not self._self_attention:
+            raise MXNetError("paged_window_step() updates a self-attention "
+                             "cache; cross-attention uses attend()")
+        q, k_t, v_t = self._qkv(query)
+        B, S = query.shape[0], query.shape[1]
+        page_size = k_pool.shape[1]
+        P = page_table.shape[1]
+        steps = torch.arange(S, device=query.device)
+        abs_pos = pos.long()[:, None] + steps[None, :]
+        live = active[:, None].expand(B, S)
+        if window_vl is not None:
+            live = live & (steps[None, :] < window_vl.long()[:, None])
+        rows = torch.arange(B, device=query.device)[:, None]
+        # a table column past the width clamps, as the JAX gather does
+        slot = torch.where(live, abs_pos // page_size, 0).clamp(0, P - 1)
+        page = torch.where(live, page_table[rows, slot].long(), 0)
+        off = torch.where(live, abs_pos % page_size, 0)
+        k_pool[page, off] = k_t.to(k_pool.dtype)
+        v_pool[page, off] = v_t.to(v_pool.dtype)
+        if self._causal:
+            out = paged_window_attention(q.contiguous(), k_pool, v_pool,
+                                         page_table, pos, window_vl,
+                                         self._sm_scale())
+        else:
+            out = self._paged_dense(q, k_pool, v_pool, page_table, pos)
+        return self._finish(out), k_pool, v_pool

@@ -2,7 +2,7 @@
 
 Counterpart of ``mxnet_tpu/optimizer/optimizer.py``: the ``Optimizer``
 base's hyper-parameters (``learning_rate``, ``wd``, ``clip_gradient``,
-``rescale_grad``, per-parameter ``lr_mult``/``wd_mult``), ``SGD`` (:278)
+``rescale_grad``, the ``lr_mult``/``wd_mult`` dicts), ``SGD`` (:278)
 and ``AdamW`` (:406-431). The update itself runs in
 ``parallel.TrainStep`` through ``ops.optimizer_op``; the per-parameter
 ``Updater`` path is not ported.
@@ -18,9 +18,17 @@ __all__ = ["Optimizer", "SGD", "AdamW"]
 
 
 class Optimizer:
-    """Hyper-parameters shared by every optimizer. ``lr_mult`` and
-    ``wd_mult`` map a parameter's structural name to a multiplier of the
-    learning rate and weight decay (default 1)."""
+    """Hyper-parameters shared by every optimizer.
+
+    ``set_lr_mult``/``set_wd_mult`` store the ``lr_mult``/``wd_mult``
+    dicts (structural name -> multiplier) as the JAX package does; like
+    its ``TrainStep``, the port's reads neither dict but each parameter's
+    own ``lr_mult``/``wd_mult`` attribute (default 1), e.g.
+    ``dict(net.named_parameters())[name].lr_mult = 0.0``. The dicts are
+    for the per-parameter ``Updater`` path, not ported. This optimizer
+    takes no ``param_idx2name``: with the empty ``idx2name`` that leaves,
+    the JAX ``set_wd_mult`` rule (``:183-189``, weight decay 0 for every
+    indexed name not ending in ``_weight``) reduces to a copy."""
 
     def __init__(self, learning_rate=None, wd=0.0, clip_gradient=None,
                  rescale_grad=1.0):

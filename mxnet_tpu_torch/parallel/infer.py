@@ -2,8 +2,9 @@
 
 Counterpart of ``mxnet_tpu/parallel/infer.py`` (``InferStep``), paged
 protocol only: ``init_paged_state`` (``:449``), ``prefill_paged``
-(``:558``) and ``decode_iter`` (``:621``), greedy sampling
-(``_sample_tokens``, ``:59-74``). PyTorch runs eagerly, so the jitted
+(``:558``), the forced-prefix replay ``prefill_suffix_paged`` (``:585``)
+and ``decode_iter`` (``:621``), greedy sampling (``_sample_tokens``,
+``:59-74``). PyTorch runs eagerly, so the jitted
 programs become plain calls and ``decode_iter``'s ``fori_loop`` a Python
 loop; every call runs the model in eval mode under
 ``torch.inference_mode()`` and performs no host sync (the tokens it
@@ -82,6 +83,26 @@ class InferStep:
             src, prime, vl, state, self._tensor(slot_ids, torch.int64),
             self._tensor(first_pages, torch.int64),
             self._tensor(active, torch.bool))
+        return _sample_tokens(logits.float()), state
+
+    @_inference
+    def prefill_suffix_paged(self, state, tokens, token_vl, q_offset,
+                             page_tables, slot_ids, active, wide=False):
+        """Replay each row's forced history (``tokens`` (rows, S), the
+        first ``token_vl[r]`` real, at positions ``q_offset[r] + j``) into
+        its pages and choose its first new token; the slots' cross memory
+        comes from an earlier ``prefill_paged``, no encoder runs.
+        ``wide`` replays in one window pass (kernel B6 on the card) in
+        place of one decode step per position. Padding rows carry slot id
+        ``slots`` and an all-trash table. Returns ``(tok0 (rows,) int32
+        tensor on the device, state)``."""
+        logits, state = self._net.prefill_suffix_paged(
+            self._tensor(tokens, torch.int32),
+            self._tensor(token_vl, torch.int32),
+            self._tensor(q_offset, torch.int32), state,
+            self._tensor(page_tables, torch.int32),
+            self._tensor(slot_ids, torch.int64),
+            self._tensor(active, torch.bool), wide=bool(wide))
         return _sample_tokens(logits.float()), state
 
     @_inference

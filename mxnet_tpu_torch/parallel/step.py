@@ -171,13 +171,14 @@ class TrainStep:
     def _update(self, grads):
         opt = self._optimizer
         for (name, w), g in zip(self._params.items(), grads):
-            key = name[len("net."):]
             g = torch.zeros_like(w) if g is None else g.to(w.dtype)
             states = self._states[name]
+            # the multipliers are the parameter's own (:502-503); the
+            # optimizer's lr_mult/wd_mult dicts are not read
             new_w, new_states = opt.update(
                 w, g, tuple(s.to(w.dtype) for s in states),
-                opt.lr * opt.lr_mult.get(key, 1.0),
-                opt.wd * opt.wd_mult.get(key, 1.0), self._t)
+                opt.lr * getattr(w, "lr_mult", 1.0),
+                opt.wd * getattr(w, "wd_mult", 1.0), self._t)
             w.copy_(new_w)
             for s, ns in zip(states, new_states):
                 s.copy_(ns)

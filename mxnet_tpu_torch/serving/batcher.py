@@ -4,13 +4,16 @@ Counterpart of ``ContinuousBatcher`` in ``mxnet_tpu/serving/batcher.py``
 (``:725``), its scheduling core: ``submit``, the scheduler thread,
 ``_admit`` (``:1412``), ``_dispatch`` (``:1741``), ``_collect``
 (``:1780``), ``_retire`` (``:1079``), slot reuse, per-request
-``max_new_tokens``, EOS, page release and ``stop()``. The decode batch
-is a fixed menu of ``slots``; every iteration retires finished rows and
-frees their pages, admits queued
+``max_new_tokens``, EOS, page release and ``stop()``, and the forced
+target prefix (``submit(prefix_ids=...)``, ``max_prefix_tokens``,
+``suffix_wide``). The decode batch is a fixed menu of ``slots``; every
+iteration retires finished rows and frees their pages, admits queued
 requests into the vacated slots through one padded prefill-into-pages
-call, then runs one ``InferStep.decode_iter`` burst of ``iter_tokens``
-tokens. The pool always provisions every slot in full
-(``slots * pages_per_slot`` pages). The prefix cache, speculation,
+call (rows with a forced prefix then replay it through one
+``InferStep.prefill_suffix_paged`` call), then runs one
+``InferStep.decode_iter`` burst of ``iter_tokens`` tokens. The pool
+always provisions every slot in full (``slots * pages_per_slot`` pages).
+The prefix cache, speculation,
 disaggregation, undersized pools with preemption, deadlines,
 backpressure, token streaming, fault injection, tracing and telemetry of
 the JAX package are not ported yet.
@@ -76,12 +79,18 @@ class GenerationResult:
 
 
 class _Request:
-    __slots__ = ("prompt", "max_new", "future")
+    __slots__ = ("prompt", "max_new", "future", "prefix")
 
-    def __init__(self, prompt, max_new, future):
+    def __init__(self, prompt, max_new, future, prefix=None):
         self.prompt = prompt
         self.max_new = max_new
         self.future = future
+        self.prefix = prefix  # forced target history, or None
+
+    @property
+    def target_len(self) -> int:
+        """Cached target positions once admitted: BOS and the prefix."""
+        return 1 + (0 if self.prefix is None else self.prefix.shape[0])
 
 
 class _Slot:
@@ -92,7 +101,7 @@ class _Slot:
     def __init__(self, req, first_tok):
         self.req = req
         self.carry = first_tok  # last chosen token, not yet KV-cached
-        self.length = 1         # KV entries cached: the BOS prime
+        self.length = req.target_len  # KV entries cached: BOS and prefix
         self.emitted = [first_tok]
         self.finished = False
 
@@ -110,11 +119,19 @@ class ContinuousBatcher:
     max_new_tokens : per-request generation cap (requests may ask less).
     page_size : tokens per KV page (``MXTPU_PAGE_SIZE``, default 16).
     iter_tokens : decode tokens per iteration (dispatch granularity).
+    max_prefix_tokens : forced target-prefix budget per request (re-sent
+        history, ``submit(prefix_ids=...)``); each slot is provisioned for
+        ``1 + max_prefix_tokens + max_new_tokens`` cached positions. 0
+        (default) rejects prefix requests.
+    suffix_wide : replay forced prefixes through the one-pass window
+        program (kernel B6 on the card) instead of the sequential
+        per-position stream.
     """
 
     def __init__(self, engine, bucket_keys: Sequence[int], slots: int = 8,
                  max_new_tokens: int = 32, page_size: Optional[int] = None,
-                 iter_tokens: int = 4):
+                 iter_tokens: int = 4, max_prefix_tokens: int = 0,
+                 suffix_wide: bool = False):
         self._engine = engine
         self.bucket_keys = sorted(int(k) for k in bucket_keys)
         if not self.bucket_keys:
@@ -125,8 +142,18 @@ class ContinuousBatcher:
         self._eos = engine._eos
         self.page_size = int(page_size) if page_size is not None \
             else _pages.page_size_default()
-        self.pages_per_slot = _pages.pages_for(1 + self.max_new,
-                                               self.page_size)
+        self.max_prefix = int(max_prefix_tokens)
+        self.suffix_wide = bool(suffix_wide)
+        self.pages_per_slot = _pages.pages_for(
+            1 + self.max_prefix + self.max_new, self.page_size)
+        # replay widths: powers of two below max_prefix, then max_prefix
+        self._suffix_menu = []
+        if self.max_prefix > 0:
+            w = 1
+            while w < self.max_prefix:
+                self._suffix_menu.append(w)
+                w *= 2
+            self._suffix_menu.append(self.max_prefix)
         self.num_pages = self.slots * self.pages_per_slot
         self.iter_tokens = max(int(iter_tokens), 1)
         self.mem_len = self.bucket_keys[-1]
@@ -191,10 +218,14 @@ class ContinuousBatcher:
         self.pool.reset()
 
     # ------------------------------------------------------------- requests
-    def submit(self, prompt_ids, max_new_tokens: Optional[int] = None
-               ) -> GenerationResult:
-        """Enqueue one prompt (1-D int sequence). Submitting to a stopped
-        batcher returns an already-failed future."""
+    def submit(self, prompt_ids, max_new_tokens: Optional[int] = None,
+               prefix_ids=None) -> GenerationResult:
+        """Enqueue one prompt (1-D int sequence). ``prefix_ids`` is the
+        target-side history of earlier turns, re-sent by the client: it
+        is forced verbatim before new tokens are chosen, and only the new
+        tokens are returned (an empty prefix is none; one longer than
+        ``max_prefix_tokens`` raises). Submitting to a stopped batcher
+        returns an already-failed future."""
         prompt = np.asarray(prompt_ids, dtype=np.int32).reshape(-1)
         if prompt.shape[0] > self.bucket_keys[-1]:
             raise MXNetError(
@@ -205,13 +236,22 @@ class ContinuousBatcher:
         if not 1 <= max_new <= self.max_new:
             raise MXNetError(f"request max_new_tokens {max_new} outside "
                              f"[1, {self.max_new}]")
+        prefix = None
+        if prefix_ids is not None:
+            prefix = np.asarray(prefix_ids, dtype=np.int32).reshape(-1)
+            if prefix.shape[0] == 0:
+                prefix = None
+            elif prefix.shape[0] > self.max_prefix:
+                raise MXNetError(
+                    f"prefix length {prefix.shape[0]} > batcher "
+                    f"max_prefix_tokens {self.max_prefix}")
         fut = GenerationResult()
         if not self.healthy:
             fut._fail(RuntimeError("ContinuousBatcher is not accepting "
                                    "requests (stopped, or its scheduler "
                                    "thread died)"))
             return fut
-        self._queue.put(_Request(prompt, max_new, fut))
+        self._queue.put(_Request(prompt, max_new, fut, prefix))
         return fut
 
     def _bucket_for(self, length):
@@ -271,26 +311,37 @@ class ContinuousBatcher:
                 s.req.future._resolve(list(s.emitted))
             self.stats["retired"] += 1
 
+    def _rows_for(self, n):
+        """Call row count: the smallest power of two covering ``n`` rows,
+        at most ``slots``."""
+        rows = 1
+        while rows < n:
+            rows *= 2
+        return min(rows, self.slots)
+
     def _admit(self) -> int:
         """Fill vacated slots from the waiting line with ONE padded
         prefill-into-pages call; each admitted row's first token comes
-        from it. The call's row count is the smallest power of two that
-        covers the admitted set (at most ``slots``)."""
+        from it, except a row with a forced prefix: it is BOS-primed in
+        the same call, then every such row replays its prefix through
+        ONE ``prefill_suffix_paged`` call, which gives its first token
+        (``:1481-1486``, ``:1581-1630``)."""
         free = [i for i, s in enumerate(self._slots) if s is None]
         picked = []
         while free and self._pending:
             slot = free.pop(0)
-            if not self.pool.alloc(slot, 1):
+            # pages for BOS and the whole prefix before the replay
+            # (_stage_slot, :1348-1349)
+            if not (self.pool.alloc(slot, 1) and self.pool.ensure(
+                    slot, self._pending[0].target_len)):
+                self.pool.release(slot)
                 break
             picked.append((slot, self._pending.popleft()))
         if not picked:
             return 0
         bucket = self._bucket_for(max(r.prompt.shape[0]
                                       for _, r in picked))
-        rows = 1
-        while rows < len(picked):
-            rows *= 2
-        rows = min(rows, self.slots)
+        rows = self._rows_for(len(picked))
         src = np.full((rows, bucket), self._pad, np.int32)
         vl = np.full((rows,), bucket, np.int32)
         slot_ids = np.full((rows,), self.slots, np.int32)  # out of range
@@ -311,22 +362,70 @@ class ContinuousBatcher:
             for _, r in picked:  # not in a slot yet: _poison cannot see them
                 r.future._fail(e)
             raise
+        forced = []
         for i, (slot, r) in enumerate(picked):
-            s = _Slot(r, int(tok0[i]))
-            s.finished = s.carry == self._eos or r.max_new == 1
-            self._slots[slot] = s
-            r.future._first_token()
+            if r.prefix is not None:
+                forced.append((slot, r))  # the BOS sample is not used
+            else:
+                self._activate(slot, r, int(tok0[i]))
+        if forced:
+            try:
+                first = self._replay(forced)
+            except Exception as e:
+                for _, r in forced:
+                    r.future._fail(e)
+                raise
+            for (slot, r), tok in zip(forced, first):
+                self._activate(slot, r, int(tok))
         self.stats["admitted"] += len(picked)
         return len(picked)
+
+    def _replay(self, forced):
+        """One ``prefill_suffix_paged`` call over the BOS-primed rows with
+        a forced prefix (``:1588-1617``): each row's prefix at positions
+        1.., the width the smallest menu entry that holds the longest;
+        padding rows carry slot id ``slots`` and all-trash tables. Returns
+        each row's first new token."""
+        rows = self._rows_for(len(forced))
+        need = max(r.prefix.shape[0] for _, r in forced)
+        width = next(w for w in self._suffix_menu if w >= need)
+        toks = np.zeros((rows, width), np.int32)
+        vl = np.ones((rows,), np.int32)
+        q_off = np.zeros((rows,), np.int32)
+        tables = np.zeros((rows, self.pages_per_slot), np.int32)
+        slot_ids = np.full((rows,), self.slots, np.int32)  # out of range
+        active = np.zeros((rows,), bool)
+        for i, (slot, r) in enumerate(forced):
+            n = r.prefix.shape[0]
+            toks[i, :n] = r.prefix
+            vl[i] = n
+            q_off[i] = 1  # after the BOS prime
+            tables[i] = self.pool.table[slot]
+            slot_ids[i] = slot
+            active[i] = True
+        tok, self._state = self._engine.prefill_suffix_paged(
+            self._state, toks, vl, q_off, tables, slot_ids, active,
+            wide=self.suffix_wide)
+        return tok.cpu().numpy()[:len(forced)]
+
+    def _activate(self, slot, r, first_tok):
+        """Install an admitted request in its slot with its first token
+        (``_activate``, ``:1642-1654``)."""
+        s = _Slot(r, first_tok)
+        s.finished = s.carry == self._eos or r.max_new == 1
+        self._slots[slot] = s
+        r.future._first_token()
 
     def _ensure_capacity(self, live):
         """Grow each live row's pages so it can cache the next burst. A
         row near its ``max_new_tokens`` needs less than a full burst: its
-        surplus burst steps fall past its pages onto trash-page entries.
-        The pool provisions every slot in full, so this cannot fail."""
+        surplus burst steps fall past its pages onto trash-page entries
+        (the cap is BOS, the prefix and ``max_new``, ``:1693-1701``). The
+        pool provisions every slot in full, so this cannot fail."""
         for i in live:
             s = self._slots[i]
-            upto = min(s.length + self.iter_tokens, 1 + s.req.max_new)
+            upto = min(s.length + self.iter_tokens,
+                       s.req.target_len + s.req.max_new)
             if not self.pool.ensure(i, upto):
                 raise MXNetError(f"page pool exhausted growing slot {i} to "
                                  f"{upto} tokens")

@@ -8,7 +8,9 @@ Tolerance: float32 kernels sum in another order than the plain versions
 (1e-5 absolute and relative for LayerNorm, 2e-5 for attention over up
 to 512 keys); bfloat16 outputs (LayerNorm and flash attention; the paged
 kernel serves the float32 cache only) are compared within 2 bf16 ulps of
-O(1) values (2e-2).
+O(1) values (2e-2). The paged window kernel (B6) is held against its
+plain version on CPU copies at 1e-5 absolute and relative: it sums at
+most 176 keys per query in another order.
 
 The backward kernels (B2 LayerNorm, B4a/B4b flash attention) are held
 against their plain versions run on CPU copies of the same inputs in
@@ -126,6 +128,65 @@ def test_paged_decode_kernel():
     _close(got, want, 2e-5)
 
 
+# the forced-prefix replay's shapes: 8 rows, H=8, D=64, page_size 16,
+# P=11 pages a row (1 + 128 + 32 positions); offsets 0, 1 and mid-page
+WINDOW_OFFSETS = [1, 1, 0, 9, 1, 40, 0, 0]
+
+
+def _window_inputs(S, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    B, H, D, ps, P = 8, 8, 64, 16, 11
+    kp = torch.randn(1 + B * P, ps, H, D, generator=g)
+    vp = torch.randn(1 + B * P, ps, H, D, generator=g)
+    q = torch.randn(B, S, H, D, generator=g)
+    table = (1 + torch.arange(B * P, dtype=torch.int32)).reshape(B, P)
+    table[6] = 0  # a padding row: all-trash table, one live query
+    off = torch.tensor(WINDOW_OFFSETS, dtype=torch.int32)
+    vl = torch.tensor([S, max(S - 3, 0), S, max(S // 2, 1), 1, S, 1,
+                       max(S - 1, 0)], dtype=torch.int32)
+    return q, kp, vp, table, off, vl
+
+
+@pytest.mark.parametrize("S", [1, 16, 128])
+def test_paged_window_kernel(S):
+    """B6 at the replay's shapes against its plain version on CPU
+    copies; padding queries exactly 0, the same bits on a second call,
+    one launch per call."""
+    dev = _card()
+    args = _window_inputs(S, S)
+    cuda = [t.to(dev) for t in args]
+    before = k_pa.launches_window
+    got = k_pa.paged_window_attention(*cuda, 64 ** -0.5)
+    torch.cuda.synchronize()
+    assert k_pa.launches_window == before + 1
+    want = k_pa.paged_window_plain(*args, 64 ** -0.5)
+    assert torch.isfinite(got).all() and got.shape == want.shape
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    for b, n in enumerate(args[-1].tolist()):
+        assert (got[b, n:] == 0).all()
+    again = k_pa.paged_window_attention(*cuda, 64 ** -0.5)
+    assert torch.equal(again, got)
+
+
+def test_paged_window_kernel_rejects_what_it_does_not_take():
+    dev = _card()
+    q, kp, vp, table, off, vl = (t.to(dev) for t in _window_inputs(4, 0))
+    with pytest.raises(Exception, match="float32 with head dim 64"):
+        k_pa.paged_window_attention(q.bfloat16(), kp.bfloat16(),
+                                    vp.bfloat16(), table, off, vl, 0.125)
+    with pytest.raises(Exception, match="float32 with head dim 64"):
+        k_pa.paged_window_attention(q[..., :32].contiguous(),
+                                    kp[..., :32].contiguous(),
+                                    vp[..., :32].contiguous(), table, off,
+                                    vl, 0.125)
+    with pytest.raises(Exception, match="int32"):
+        k_pa.paged_window_attention(q, kp, vp, table.long(), off, vl, 0.125)
+    with pytest.raises(Exception, match="contiguous"):
+        k_pa.paged_window_attention(q.transpose(1, 2).contiguous()
+                                    .transpose(1, 2), kp, vp, table, off,
+                                    vl, 0.125)
+
+
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 BWD_REL_L2 = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
@@ -208,6 +269,31 @@ def test_flash_attention_bwd_kernels(B, H, S, vl, causal, dtype):
     want_dq = k_fa.flash_attention_bwd_dq_plain(*args, causal)
     for o, w in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
         _close_to_cpu(o, w, dtype)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_bwd_repeats_its_bits(causal):
+    """A race between the threads of B4a or B4b would show as bits that
+    change from call to call: 20 calls on the training path's f32 inputs
+    (where one run once read a dK/dV error 28x the others') give the
+    bits of the first."""
+    dev = _card()
+    g = torch.Generator(device="cpu").manual_seed(7)
+    q, k, v, do = (torch.randn(16, 12, 512, 64, generator=g).to(dev)
+                   for _ in range(4))
+    vl = torch.tensor([512, 0, 300, 1, 511, 64, 65, 200, 256, 384, 500, 17,
+                       129, 450, 333, 77], dtype=torch.int32, device=dev)
+    out, lse = k_fa.flash_attention_fwd(q, k, v, vl, causal)
+    delta = (do.float() * out.float()).sum(-1)
+    first = k_fa.flash_attention_bwd_dkdv(q, k, v, vl, lse, delta, do,
+                                          causal) + \
+        (k_fa.flash_attention_bwd_dq(q, k, v, vl, lse, delta, do, causal),)
+    for _ in range(19):
+        again = k_fa.flash_attention_bwd_dkdv(q, k, v, vl, lse, delta, do,
+                                              causal) + \
+            (k_fa.flash_attention_bwd_dq(q, k, v, vl, lse, delta, do,
+                                         causal),)
+        assert all(torch.equal(a, b) for a, b in zip(again, first))
 
 
 # (M, C) of ResNet-50's BatchNorms at B=64, 224x224 (53 a step)

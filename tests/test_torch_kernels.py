@@ -317,3 +317,11 @@ def test_wrappers_refuse_other_devices():
             torch.zeros((2, 4, 1, 32), device="meta"),
             torch.zeros((1, 1), dtype=torch.int32, device="meta"),
             torch.zeros((1,), dtype=torch.int32, device="meta"), 1.0)
+    ints = dict(dtype=torch.int32, device="meta")
+    with pytest.raises(MXNetError):
+        k_pa.paged_window_attention(
+            torch.zeros((1, 2, 1, 64), device="meta"),
+            torch.zeros((2, 4, 1, 64), device="meta"),
+            torch.zeros((2, 4, 1, 64), device="meta"),
+            torch.zeros((1, 1), **ints), torch.zeros((1,), **ints),
+            torch.ones((1,), **ints), 1.0)

@@ -79,7 +79,7 @@ def _batch():
     return ids, types, vl, labels
 
 
-def _jax_run(path, compute_dtype):
+def _jax_run(path, compute_dtype, steps=STEPS, multipliers=None):
     jnet = JaxBERT(**CFG)
     jnet.initialize()
     jnet._probe_shapes(nd.zeros((2, 8), dtype="int32"))
@@ -93,11 +93,14 @@ def _jax_run(path, compute_dtype):
                 word_w.data().T)
             return ce(logits, label.reshape(-1))
 
-    step = JaxTrainStep(jnet, JaxPretrainLoss(), jopt.AdamW(**OPT),
+    opt = jopt.AdamW(**OPT)
+    if multipliers is not None:
+        multipliers(jnet._collect_params_with_prefix(), opt)
+    step = JaxTrainStep(jnet, JaxPretrainLoss(), opt,
                         compute_dtype=compute_dtype,
                         state_dtype=compute_dtype)
     batch = [nd.array(a, dtype="int32") for a in _batch()]
-    losses = [float(step(*batch).asscalar()) for _ in range(STEPS)]
+    losses = [float(step(*batch).asscalar()) for _ in range(steps)]
     step.sync_params()
     params = {n: p.data().asnumpy()
               for n, p in jnet._collect_params_with_prefix().items()}
@@ -160,16 +163,48 @@ def test_steps_per_call_equals_single_steps(saved):
                                       b.detach().numpy(), err_msg=n)
 
 
+def _multipliers(params, opt):
+    """``lr_mult`` 0 on a parameter with a gradient, ``wd_mult`` 0 on one
+    without (the pooler, which otherwise only decays), both set on the
+    parameters; and an optimizer ``set_lr_mult`` on a third, which both
+    packages' ``TrainStep`` ignore."""
+    params["word_embed.weight"].lr_mult = 0.0
+    params["pooler.weight"].wd_mult = 0.0
+    opt.set_lr_mult({"position_embed.weight": 0.0})
+
+
 def test_lr_and_wd_multipliers(saved):
-    """``lr_mult`` 0 freezes a parameter that has a gradient; ``wd_mult``
-    0 stops the decay of one that has none (the pooler)."""
+    """``lr_mult`` 0 on a parameter freezes it although it has a
+    gradient; ``wd_mult`` 0 stops the decay of one that has none (the
+    pooler); the optimizer's ``set_lr_mult`` dict is not read, so the
+    parameter it names moves."""
     net, step = _port_step(saved)
     before = {n: p.detach().clone() for n, p in net.named_parameters()}
-    step._optimizer.set_lr_mult({"word_embed.weight": 0.0})
-    step._optimizer.set_wd_mult({"pooler.weight": 0.0})
+    _multipliers(dict(net.named_parameters()), step._optimizer)
     step(*_batch())
     after = dict(net.named_parameters())
     for frozen in ("word_embed.weight", "pooler.weight"):
         assert torch.equal(after[frozen], before[frozen]), frozen
     for moved in ("token_type_embed.weight", "position_embed.weight"):
         assert not torch.equal(after[moved], before[moved]), moved
+
+
+def test_multipliers_match_jax(saved):
+    """The same multipliers in both packages: one step leaves every
+    parameter within 1e-5 of the JAX step's, the frozen ones unchanged
+    and the one named only in ``set_lr_mult`` moved in both."""
+    _, want = _jax_run(saved, None, steps=1, multipliers=_multipliers)
+    net, step = _port_step(saved)
+    before = {n: p.detach().clone() for n, p in net.named_parameters()}
+    _multipliers(dict(net.named_parameters()), step._optimizer)
+    step(*_batch())
+    got = {n: p.detach().numpy() for n, p in net.named_parameters()}
+    assert set(got) == set(want)
+    for n in want:
+        np.testing.assert_allclose(got[n], want[n], err_msg=n, **TOL)
+    for frozen in ("word_embed.weight", "pooler.weight"):
+        np.testing.assert_array_equal(got[frozen], before[frozen].numpy())
+        np.testing.assert_array_equal(want[frozen], before[frozen].numpy())
+    moved = "position_embed.weight"
+    assert not np.array_equal(got[moved], before[moved].numpy())
+    assert not np.array_equal(want[moved], before[moved].numpy())
